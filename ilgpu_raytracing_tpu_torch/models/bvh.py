@@ -1,0 +1,125 @@
+"""Skip-index BVH builder (host, numpy; port of models/bvh.py, build only).
+
+Median split on the largest-extent axis with the reference's tie-break
+rules, RIGHT subtree emitted before LEFT so a left subtree's miss pointer is
+the right root (reference Scene.cs:405-510). Node int fields are packed
+`(left, first, count, skip)`; leaf `first` indexes the leaf-order list.
+SAH and LBVH builds come from the native scene core.
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+
+import numpy as np
+
+log = logging.getLogger(__name__)
+
+# packed int-field column indices
+LEFT, FIRST, COUNT, SKIP = 0, 1, 2, 3
+
+
+def _largest_axis(ext: np.ndarray) -> int:
+    """Reference axis pick (Scene.cs:447-450): x unless y/z strictly larger."""
+    axis = 0
+    if ext[1] > ext[0] and ext[1] >= ext[2]:
+        axis = 1
+    elif ext[2] > ext[0] and ext[2] >= ext[1]:
+        axis = 2
+    return axis
+
+
+def build_skip_index_bvh(
+    bmin: np.ndarray,
+    bmax: np.ndarray,
+    centroid: np.ndarray,
+    leaf_size: int,
+    method: str = "median",
+    use_native: bool | None = None,
+):
+    """Build over P primitive AABBs. Returns (node_bmin (N,3) f32,
+    node_bmax (N,3) f32, node_ifields (N,4) i32, leaf_order (L,) i32).
+
+    method: "median" (reference parity), "sah" or "lbvh" (native only; they
+    degrade to median, with a warning, when no C++ compiler is present).
+    use_native: None = native for P >= 4096 or for sah/lbvh."""
+    P = np.asarray(bmin).shape[0]
+    if use_native is None:
+        use_native = method in ("sah", "lbvh") or P >= 4096
+    if use_native:
+        from ilgpu_raytracing_tpu_torch import native as native_mod
+
+        method_id = {"median": native_mod.BUILD_MEDIAN,
+                     "sah": native_mod.BUILD_SAH,
+                     "lbvh": native_mod.BUILD_LBVH}[method]
+        out = native_mod.build_bvh(bmin, bmax, centroid, leaf_size, method_id)
+        if out is not None:
+            return out
+        if method != "median":
+            log.warning(
+                "native scene core unavailable: %s BVH build degrades to "
+                "the Python median split (%d prims)", method, P,
+            )
+    return _build_skip_index_bvh_py(bmin, bmax, centroid, leaf_size)
+
+
+def _build_skip_index_bvh_py(
+    bmin: np.ndarray, bmax: np.ndarray, centroid: np.ndarray, leaf_size: int
+):
+    P = bmin.shape[0]
+    assert P > 0
+    bmin = np.asarray(bmin, dtype=np.float32)
+    bmax = np.asarray(bmax, dtype=np.float32)
+    centroid = np.asarray(centroid, dtype=np.float32)
+
+    node_bmin: list[np.ndarray] = []
+    node_bmax: list[np.ndarray] = []
+    node_int: list[list[int]] = []
+    leaf_order: list[np.ndarray] = []
+    leaf_len = 0
+
+    need = 2 * (P // max(1, leaf_size) + 2) * 64
+    if sys.getrecursionlimit() < need:
+        sys.setrecursionlimit(min(1_000_000, max(10_000, need)))
+
+    def rec(ids: np.ndarray, parent_skip: int) -> int:
+        nonlocal leaf_len
+        node_i = len(node_int)
+        node_bmin.append(bmin[ids].min(axis=0))
+        node_bmax.append(bmax[ids].max(axis=0))
+        node_int.append([-1, -1, 0, parent_skip])
+
+        if len(ids) <= leaf_size:
+            node_int[node_i][FIRST] = leaf_len
+            node_int[node_i][COUNT] = len(ids)
+            leaf_order.append(ids)
+            leaf_len += len(ids)
+            return node_i
+
+        axis = _largest_axis(node_bmax[node_i] - node_bmin[node_i])
+        srt = ids[np.argsort(centroid[ids, axis], kind="stable")]
+        mid = len(ids) >> 1
+        right_root = rec(srt[mid:], parent_skip)
+        left_root = rec(srt[:mid], right_root)
+        node_int[node_i][LEFT] = left_root
+        return node_i
+
+    rec(np.arange(P, dtype=np.int32), -1)
+    return (
+        np.stack(node_bmin).astype(np.float32),
+        np.stack(node_bmax).astype(np.float32),
+        np.array(node_int, dtype=np.int32),
+        np.concatenate(leaf_order).astype(np.int32),
+    )
+
+
+def sphere_bounds(center: np.ndarray, radius: np.ndarray):
+    r = radius[:, None]
+    return center - r, center + r
+
+
+def triangle_bounds(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray):
+    bmin = np.minimum(v0, np.minimum(v1, v2))
+    bmax = np.maximum(v0, np.maximum(v1, v2))
+    return bmin, bmax

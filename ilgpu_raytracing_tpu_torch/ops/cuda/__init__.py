@@ -1,0 +1,70 @@
+"""Hand-written Hopper kernels of the frame's hot path (counterpart of the
+JAX package's ops/pallas/).
+
+Sources live in `csrc/`; each is compiled by nvcc for sm_90a into a shared
+library with a plain C interface (`utils/build.py`: at first use, into the
+git-ignored `_build/`, rebuilt when the source changes) and bound with
+ctypes. Pointers and PyTorch's current stream go in as `c_void_p`; every C
+entry returns `cudaGetLastError()` and the wrapper raises on nonzero.
+
+No `--use_fast_math`: the slab and Moller-Trumbore math keeps IEEE division
+and sqrt. `--fmad=false` keeps multiply-adds unfused, so the kernels round
+exactly as the plain PyTorch versions do and the two can be compared lane
+for lane.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+
+import torch
+
+from ilgpu_raytracing_tpu_torch.utils.build import PKG_DIR, build_and_load
+
+CSRC = os.path.join(PKG_DIR, "csrc")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+]
+
+VP = ctypes.c_void_p
+CI = ctypes.c_int
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def load_kernel_library(name: str):
+    """Build (at first use) and load csrc/<name>.cu. Returns (CDLL, seconds)."""
+    return build_and_load(
+        name, [_nvcc()] + NVCC_FLAGS, [os.path.join(CSRC, name + ".cu")]
+    )
+
+
+def check(lib, prefix: str, err: int) -> None:
+    """Raise with CUDA's message when a C entry returned an error."""
+    if err != 0:
+        fn = getattr(lib, prefix + "_error_string")
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [CI]
+        raise RuntimeError(f"{prefix} kernel launch failed: {fn(err).decode()}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current stream on t's device, as the kernels take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def build_all() -> float:
+    """Build every kernel library of the port; returns compile seconds."""
+    from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos, wide
+
+    return wide.library()[1] + sortpos.library()[1]

@@ -1,0 +1,441 @@
+"""Wavefront path-trace integrator (port of ops/integrator.py).
+
+`primary_visibility` fills the G-buffer with one batched trace + deferred
+shading; `path_trace` vectorizes all spp samples into one lane batch and
+runs an unrolled bounce loop in which every bounce issues ONE sorted
+closest trace and ONE sorted shadow trace: ReSTIR DI at the first diffuse
+vertex (candidates-only deeper), mirror / glass / lambert as masked lane
+updates, Russian roulette from `rr_start_depth`, visibility-ray RR, the
+once-per-frame bounce-0 sun occlusion trace, an any-hit sky test at the
+final bounce, and a per-sample NaN scrub and fold.
+
+With a WideScene the traces go through the wide kernels (ops/cuda/wide.py)
+and the counting sort (ops/cuda/sortpos.py), which run their CUDA kernels
+on CUDA tensors and their plain versions on CPU tensors; without one they
+go to the plain tracer of ops/traverse.py directly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ilgpu_raytracing_tpu_torch.config import RenderConfig
+from ilgpu_raytracing_tpu_torch.models.materials import (
+    SHADING_GLASS,
+    SHADING_LAMBERT,
+    SHADING_MIRROR,
+)
+from ilgpu_raytracing_tpu_torch.models.scene import SceneData
+from ilgpu_raytracing_tpu_torch.ops import layout
+from ilgpu_raytracing_tpu_torch.ops import rays as rays_mod
+from ilgpu_raytracing_tpu_torch.ops import restir as restir_mod
+from ilgpu_raytracing_tpu_torch.ops import sky as sky_ops
+from ilgpu_raytracing_tpu_torch.ops import sort as sort_mod
+from ilgpu_raytracing_tpu_torch.ops import traverse
+from ilgpu_raytracing_tpu_torch.ops.cuda import wide as wide_mod
+from ilgpu_raytracing_tpu_torch.ops.sampling import sample_hemisphere_cosine
+from ilgpu_raytracing_tpu_torch.utils import rng as rng_mod
+from ilgpu_raytracing_tpu_torch.utils import vec
+
+
+@dataclasses.dataclass
+class GBuffer:
+    """Primary-visibility surface attributes, flat (N,) SoA
+    (reference GpuGBuffer, RTRay.cs:80-109)."""
+
+    pos: torch.Tensor  # (N,3) world position (origin + 1e6*dir on miss)
+    normal: torch.Tensor  # (N,3)
+    albedo: torch.Tensor  # (N,3)
+    shading: torch.Tensor  # (N,) i32 (-1 on miss)
+    ior: torch.Tensor  # (N,)
+    obj_id: torch.Tensor  # (N,) i32 disocclusion key
+    hit: torch.Tensor  # (N,) bool
+
+    def map(self, fn) -> "GBuffer":
+        return GBuffer(**{k: fn(v) for k, v in vars(self).items()})
+
+
+def _pick_n_chunks(n: int, target: int) -> int:
+    """Smallest divisor count keeping chunks <= target (1 = no chunking)."""
+    if target <= 0 or n <= target:
+        return 1
+    c = -(-n // target)
+    while c <= 256:
+        if n % c == 0:
+            return c
+        c += 1
+    return 1
+
+
+def _refuse_unported(scene: SceneData, n_pixels: int, chunk_target: int) -> None:
+    if scene.has_alpha:
+        raise NotImplementedError(
+            "alpha-cutout scenes: ROADMAP Queue 1, alpha and OBJ scenes "
+            "(ops/alpha.py peel)"
+        )
+    if _pick_n_chunks(n_pixels, chunk_target) > 1:
+        raise NotImplementedError(
+            f"chunked integration ({n_pixels} px above chunk_pixels="
+            f"{chunk_target}): ROADMAP Queue 1, large scenes / chunking"
+        )
+
+
+def _trace(scene, wscene, o, d, active=None, sort=False, morton_bounds=None):
+    """Closest-hit dispatch: wide kernel K1 (sorted around K3 for bounce
+    batches) when a WideScene is given, the plain tracer otherwise."""
+    if wscene is None:
+        return traverse.trace_closest(scene, o, d, active=active)
+    if sort and active is not None:
+        return sort_mod.sorted_closest_packed(
+            lambda oo, dd, act: wide_mod.trace_closest_wide_packed(
+                wscene, oo, dd, active=act),
+            lambda t, pp: wide_mod.decode_wide_hits(wscene, o, d, t, pp),
+            o, d, active, morton_bounds,
+        )
+    return wide_mod.trace_closest_wide(wscene, o, d, active=active)
+
+
+def _shadow(scene, wscene, o, d, t_max: float, active=None, sort=False,
+            morton_bounds=None):
+    """Any-hit dispatch (K2, sorted around K3 for bounce batches). The
+    sorted path needs a scalar t_max (a per-lane limit would have to ride
+    the permutation)."""
+    if wscene is None:
+        return traverse.shadow_occlusion(scene, o, d, t_max, active=active)
+
+    def run(oo, dd, act):
+        return wide_mod.shadow_occlusion_wide(wscene, oo, dd, t_max, active=act)
+
+    if sort and active is not None:
+        if not isinstance(t_max, (int, float)):
+            raise ValueError("sorted shadow path requires a scalar t_max")
+        return sort_mod.sorted_shadow(run, o, d, active, morton_bounds)
+    return run(o, d, active)
+
+
+def primary_visibility(scene: SceneData, camera, width: int, height: int,
+                       chunk_pixels: int = 0, wscene=None) -> GBuffer:
+    n = width * height
+    _refuse_unported(scene, n, chunk_pixels)
+    u, v = rays_mod.pixel_centers(width, height, scene.device)
+    o, d = rays_mod.generate_rays(camera, u, v)
+    o = o.contiguous()
+    hit = _trace(scene, wscene, o, d)
+    surf = traverse.shade_hits(scene, hit, o, d)
+    return GBuffer(
+        pos=surf.pos, normal=surf.normal, albedo=surf.albedo,
+        shading=surf.shading, ior=surf.ior, obj_id=surf.obj_id, hit=hit.hit,
+    )
+
+
+def _offset_origin(pos, n, d, eps):
+    """Normal-offset ray origin (MakeRayWithNormalOffset, RTRay.cs:552-558)."""
+    s = torch.where(vec.dot(n, d) >= 0.0, 1.0, -1.0)
+    return pos + n * (eps * s)[..., None]
+
+
+def _merge_reservoirs(dst, src, mask):
+    return restir_mod.Reservoirs(**{
+        k: restir_mod.where_rows(mask, getattr(src, k), getattr(dst, k))
+        for k in vars(dst)
+    })
+
+
+def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
+                      pixel_idx, camera, prev_camera, res_prev, res_cur_init,
+                      frame, noise_key, sun_dir, cfg: RenderConfig,
+                      width: int, height: int, wscene=None):
+    """Path-trace the pixels `pixel_idx` with all spp samples vectorized
+    into one (spp*m,) lane batch (lane s*m + i carries sample s of pixel
+    i). Later samples overwrite earlier reservoir winners, as the
+    reference's sequential ping-pong merge does."""
+    dev = scene.device
+    m = pixel_idx.shape[0]
+    spp = max(1, cfg.spp)
+    n = spp * m
+    cam_origin = torch.as_tensor(camera.origin, dtype=torch.float32, device=dev)
+    sky_top, sky_bottom = cfg.sky_tint_top, cfg.sky_tint_bottom
+    sun_radiance = cfg.sun_radiance
+
+    # scene-bounds quantization for the origin-Morton sort key
+    morton_bounds = None
+    if cfg.sort_bounce_rays and cfg.sort_origin_morton:
+        bmin = torch.amin(scene.inst_bmin, dim=0)
+        bmax = torch.amax(scene.inst_bmax, dim=0)
+        morton_bounds = (bmin, 1.0 / torch.clamp(bmax - bmin, min=1e-6))
+
+    def tile(x):
+        return x.repeat((spp,) + (1,) * (x.dim() - 1))
+
+    px, py = layout.xy_from_position(pixel_idx, width, height)
+    pu = (px.to(torch.float32) + 0.5) / float(max(1, width))
+    pv = (py.to(torch.float32) + 0.5) / float(max(1, height))
+    _, primary_d = rays_mod.generate_rays(camera, pu, pv)
+    miss_sky = tile(sky_ops.sky_radiance(primary_d, sky_top, sky_bottom))
+
+    gb_px = gb
+    gb = gb.map(tile)
+    pixel_idx = tile(pixel_idx)
+    view_i = vec.normalize(gb.pos - cam_origin)  # ViewDirFromCam (RTRay.cs:156)
+    lum_w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=torch.float32, device=dev)
+
+    def glass_ior(ior):
+        # ior <= 0 falls back to 1.5 (RTRay.cs:251-252)
+        return torch.where(ior > 0.0, ior, torch.full_like(ior, 1.5))
+
+    def vis_rr(state, contrib_rgb, act, salt):
+        """(traced_mask, scale): visibility-ray RR survivors trace and
+        scale their contribution by 1/p; scale is None when off."""
+        if cfg.shadow_rr_lum <= 0.0:
+            return act, None
+        c = torch.clamp(contrib_rgb @ lum_w, min=0.0)
+        p = torch.clamp(c * (1.0 / cfg.shadow_rr_lum), cfg.shadow_rr_pmin, 1.0)
+        u = rng_mod.side_float(state, salt)
+        return act & (u < p), torch.where(u < p, 1.0 / p, torch.zeros_like(p))
+
+    zeros3 = lambda x: torch.zeros_like(x)
+
+    def bounce_step(carry, depth: int, allow_reuse: bool, sun_occ0=None,
+                    sun_dir_n=None, final: bool = False):
+        (pos, nrm, alb, shade, ior, thr, li, alive, view, state, wrote,
+         res_cur, eff) = carry
+
+        is_mirror = alive & (shade == SHADING_MIRROR)
+        is_glass = alive & (shade == SHADING_GLASS)
+        is_lambert = alive & (shade == SHADING_LAMBERT)
+
+        # ---- mirror (RTRay.cs:235-244) ----
+        dir_mirror = vec.reflect(view, nrm)
+
+        # ---- glass (RTRay.cs:246-275) ----
+        outside = vec.dot(view, nrm) < 0.0
+        n_use = torch.where(outside[..., None], nrm, -nrm)
+        one = torch.ones_like(ior)
+        eta_i = torch.where(outside, one, glass_ior(ior))
+        eta_t = torch.where(outside, glass_ior(ior), one)
+        dir_refl = vec.reflect(view, n_use)
+        refr_ok, dir_refr = vec.refract(view, n_use, eta_i, eta_t)
+        cos_i = torch.abs(vec.dot(view, n_use))
+        fresnel = vec.schlick_fresnel(cos_i, eta_i, eta_t)
+        state, xi = rng_mod.next_float(state)
+        choose_refl = (~refr_ok) | (xi < fresnel)
+        dir_glass = torch.where(choose_refl[..., None], dir_refl, dir_refr)
+        offn_glass = torch.where(choose_refl[..., None], n_use, -n_use)
+        alb_black = torch.all(alb == 0.0, dim=-1)
+        trans_tint = torch.where(alb_black[..., None], torch.ones_like(alb), alb)
+        eta_scale = (eta_i * eta_i) / (eta_t * eta_t)
+        thr_glass_mult = torch.where(
+            choose_refl[..., None], torch.ones_like(alb),
+            trans_tint * eta_scale[..., None],
+        )
+
+        # ---- lambert: ReSTIR DI (RTRay.cs:277-298); reuse only at the
+        # first diffuse vertex of the peeled first bounce ----
+        reuse_ok = is_lambert & (~wrote)
+        no = torch.zeros_like(reuse_ok)
+        en_t = reuse_ok if (cfg.enable_temporal_reuse and allow_reuse) else no
+        en_s = reuse_ok if (cfg.enable_spatial_reuse and allow_reuse) else no
+        static_reuse = allow_reuse and (
+            cfg.enable_temporal_reuse or cfg.enable_spatial_reuse
+        )
+        state, res_out, sel = restir_mod.restir_direct(
+            scene, gb_full, res_prev, state, is_lambert, pos, nrm, alb,
+            pixel_idx, width, height, frame, prev_camera, cam_origin,
+            sun_dir, sun_radiance, sky_top, sky_bottom, en_t, en_s,
+            cfg.local_candidates, cfg.delta_candidates,
+            static_reuse=static_reuse,
+            reference_weighting=cfg.restir_reference_weighting,
+            reps=spp,
+        )
+        shadow_o = _offset_origin(pos, nrm, sel["wi"], cfg.eps_n)
+        contrib_w = torch.where(
+            (is_lambert & sel["ok"])[..., None], thr * sel["contrib"],
+            zeros3(thr),
+        )
+        if sun_occ0 is not None:
+            # bounce 0: the sun's occlusion from the G-buffer point was
+            # traced once per frame; substitute it only where the stored wi
+            # is exactly this frame's sun (imports can carry a stale one)
+            exact = torch.all(sel["wi"] == sun_dir_n[None, :], dim=-1)
+            sun_sel = sel["is_sun"] & sel["ok"] & exact
+            li = li + torch.where(
+                (sun_sel & (~sun_occ0))[..., None], contrib_w, zeros3(contrib_w)
+            )
+            q_act = sel["ok"] & (~sun_sel)
+        else:
+            q_act = sel["ok"]
+        q_act, q_scale = vis_rr(state, contrib_w, q_act, 0x53484457)
+        if q_scale is not None:
+            contrib_w = contrib_w * q_scale[..., None]
+        occluded = _shadow(
+            scene, wscene, shadow_o, sel["wi"], 1e29, active=q_act,
+            sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+        )
+        li = li + torch.where(
+            (q_act & (~occluded))[..., None], contrib_w, zeros3(contrib_w)
+        )
+        eff = eff + torch.sum(q_act.to(torch.float32))
+        write_mask = is_lambert & (~wrote)
+        res_cur = _merge_reservoirs(res_cur, res_out, write_mask)
+        wrote = wrote | is_lambert
+
+        # indirect lambert bounce + Russian roulette (RTRay.cs:300-317)
+        state, dir_diffuse = sample_hemisphere_cosine(nrm, state)
+        thr_lambert = thr * alb
+        max_c = torch.clamp(
+            torch.amax(thr_lambert, dim=-1), cfg.rr_clamp_lo, cfg.rr_clamp_hi
+        )
+        state, u_rr = rng_mod.next_float(state)
+        rr_on = is_lambert & (depth >= cfg.rr_start_depth)
+        rr_kill = rr_on & (u_rr > max_c)
+        rr_scale = torch.where(rr_on & (~rr_kill), 1.0 / max_c, torch.ones_like(max_c))
+
+        # ---- combine branches ----
+        new_dir = torch.where(
+            is_mirror[..., None], dir_mirror,
+            torch.where(is_glass[..., None], dir_glass, dir_diffuse),
+        )
+        offn = torch.where(is_glass[..., None], offn_glass, nrm)
+        thr = torch.where(
+            is_mirror[..., None], thr * alb,
+            torch.where(
+                is_glass[..., None], thr * thr_glass_mult,
+                torch.where(is_lambert[..., None],
+                            thr_lambert * rr_scale[..., None], thr),
+            ),
+        )
+        thr = torch.where(rr_kill[..., None], zeros3(thr), thr)
+
+        trace_active = alive & (~rr_kill)
+        eff = eff + torch.sum(trace_active.to(torch.float32))
+        ray_o = _offset_origin(pos, offn, new_dir, cfg.eps_n)
+        if final:
+            # the final scatter ray only feeds a sky-visibility test: run
+            # the early-exit any-hit walk and skip hit shading
+            sky_w = torch.where(
+                trace_active[..., None],
+                thr * sky_ops.sky_radiance(new_dir, sky_top, sky_bottom),
+                zeros3(thr),
+            )
+            sky_act, sky_scale = vis_rr(state, sky_w, trace_active, 0x534B5952)
+            if sky_scale is not None:
+                sky_w = sky_w * sky_scale[..., None]
+                eff = eff - torch.sum((trace_active & (~sky_act)).to(torch.float32))
+            occluded = _shadow(
+                scene, wscene, ray_o, new_dir, 1e29, active=sky_act,
+                sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+            )
+            missed = sky_act & (~occluded)
+            li = li + torch.where(missed[..., None], sky_w, zeros3(sky_w))
+            alive = sky_act & occluded
+        else:
+            hit = _trace(
+                scene, wscene, ray_o, new_dir, active=trace_active,
+                sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+            )
+            surf = traverse.shade_hits(scene, hit, ray_o, new_dir)
+            missed = trace_active & (~hit.hit)
+            li = li + torch.where(
+                missed[..., None],
+                thr * sky_ops.sky_radiance(new_dir, sky_top, sky_bottom),
+                zeros3(thr),
+            )
+            alive = trace_active & hit.hit
+            keep = alive[..., None]
+            pos = torch.where(keep, surf.pos, pos)
+            nrm = torch.where(keep, surf.normal, nrm)
+            alb = torch.where(keep, surf.albedo, alb)
+            shade = torch.where(alive, surf.shading, shade)
+            ior = torch.where(alive, surf.ior, ior)
+            view = torch.where(keep, new_dir, view)
+
+        return (pos, nrm, alb, shade, ior, thr, li, alive, view, state, wrote,
+                res_cur, eff)
+
+    # noise streams stay keyed to the CANONICAL pixel id (y*width+x)
+    canonical_idx = py * width + px
+
+    # bounce-0 sun occlusion is sample-invariant: one coherent trace per
+    # frame from the lambert G-buffer points, shared by all samples
+    sun_dir_n = vec.normalize(torch.as_tensor(sun_dir, dtype=torch.float32, device=dev))
+    if cfg.dedup_sun_shadow:
+        wi_sun0 = torch.broadcast_to(sun_dir_n, gb_px.pos.shape)
+        lam0 = gb_px.hit & (gb_px.shading == SHADING_LAMBERT)
+        sun_o0 = _offset_origin(gb_px.pos, vec.normalize(gb_px.normal),
+                                wi_sun0, cfg.eps_n)
+        sun_occ0 = tile(_shadow(scene, wscene, sun_o0, wi_sun0.contiguous(),
+                                1e29, active=lam0))
+        eff0 = torch.sum(lam0.to(torch.float32))
+    else:
+        sun_occ0 = None
+        eff0 = torch.zeros((), dtype=torch.float32, device=dev)
+
+    sample_ids = torch.arange(spp, dtype=torch.int64, device=dev).repeat_interleave(m)
+    state = rng_mod.seed_from_index(
+        tile(canonical_idx), width, frame, sample_ids, cfg.rng_salt, noise_key
+    )
+    li0 = torch.where(gb.hit[..., None], torch.zeros_like(miss_sky), miss_sky)
+    carry = (
+        gb.pos, vec.normalize(gb.normal), gb.albedo, gb.shading, gb.ior,
+        torch.ones((n, 3), dtype=torch.float32, device=dev), li0, gb.hit,
+        view_i, state, torch.zeros((n,), dtype=torch.bool, device=dev),
+        res_cur_init.map(tile), eff0,
+    )
+    n_bounce = max(1, cfg.max_depth)
+    for depth in range(n_bounce):
+        carry = bounce_step(
+            carry, depth, allow_reuse=(depth == 0),
+            sun_occ0=sun_occ0 if depth == 0 else None,
+            sun_dir_n=sun_dir_n if depth == 0 else None,
+            final=(depth == n_bounce - 1),
+        )
+    li, wrote, res_vec, eff = carry[6], carry[10], carry[11], carry[12]
+
+    # fold per pixel in sample order: scrubbed radiance sum; reservoirs keep
+    # the LAST sample that wrote
+    def sample_slice(x, s):
+        return x.reshape(spp, m, *x.shape[1:])[s]
+
+    l_sum = torch.zeros((m, 3), dtype=torch.float32, device=dev)
+    for s in range(spp):
+        l_sum = l_sum + vec.safe_color(sample_slice(li, s), cfg.safe_color_max)
+    color = l_sum * (1.0 / float(spp))
+    res_cur = res_cur_init
+    for s in range(spp):
+        res_cur = _merge_reservoirs(
+            res_cur, res_vec.map(lambda x: sample_slice(x, s)),
+            sample_slice(wrote, s),
+        )
+    depth_out = vec.length(gb_px.pos - cam_origin)
+    return color, depth_out, gb_px.obj_id, res_cur, eff
+
+
+def path_trace(scene: SceneData, gb: GBuffer, camera, prev_camera, res_prev,
+               res_cur_init, frame, noise_key, sun_dir, cfg: RenderConfig,
+               width: int, height: int, wscene=None):
+    """Shade the G-buffer with spp samples of multi-bounce transport.
+
+    Returns (color (N,3) linear, depth (N,), obj_id (N,), res_cur,
+    eff_rays), eff_rays being the count of alive trace lanes dispatched
+    (primary rays excluded). `frame` and `noise_key` are host integers."""
+    if cfg.deferred_shadows:
+        raise NotImplementedError(
+            "deferred_shadows: ROADMAP Queue 1, non-default integrator knobs"
+        )
+    if cfg.spp_pixel_major:
+        raise NotImplementedError(
+            "spp_pixel_major: ROADMAP Queue 1, non-default integrator knobs"
+        )
+    n = width * height
+    target = cfg.chunk_pixels
+    if target and wscene is None:
+        # the plain-tracer path chunks by trace lanes in the JAX package
+        target = max(1, target // max(1, cfg.spp))
+    _refuse_unported(scene, n, target)
+    pixel_idx = torch.arange(n, dtype=torch.int32, device=scene.device)
+    return _path_trace_block(
+        scene, gb, gb, pixel_idx, camera, prev_camera, res_prev, res_cur_init,
+        frame, noise_key, sun_dir, cfg, width, height, wscene,
+    )

@@ -1,0 +1,94 @@
+"""Bounce-ray reordering for traversal coherence (port of ops/sort.py;
+the treelet key of streaming scenes waits with the streaming kernels).
+
+Rays are ordered by a stable counting sort over a small key -- (alive,
+direction octant, 4-bit origin Morton code), 129 bins with every dead lane
+in the tail bin -- so rays that walk the same part of the tree sit next to
+each other. Per-lane trace results never depend on the order; the sorted
+results are restored to the original lane order afterwards.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos
+
+_BINS = 16
+
+
+def _perm_from_key(key: torch.Tensor, bins: int = _BINS):
+    """Stable counting-sort permutation for int keys in [0, bins).
+
+    Returns (perm, pos): sorted[i] = orig[perm[i]]; pos[i] is element i's
+    destination and doubles as the inverse permutation. The destinations
+    come from K3 (ops/cuda/sortpos.py: the CUDA kernel on a CUDA tensor,
+    its one-hot plain version on a CPU tensor)."""
+    n = key.shape[0]
+    pos = sortpos.counting_pos(key.to(torch.int32).contiguous(), bins)
+    perm = torch.empty((n,), dtype=torch.int32, device=key.device)
+    perm[pos.long()] = torch.arange(n, dtype=torch.int32, device=key.device)
+    return perm, pos
+
+
+def _morton4(o: torch.Tensor, bmin, inv_ext) -> torch.Tensor:
+    """4-bit spatial code of the quantized ray origin: the scene-octant bits
+    of all three axes plus the second-level bit of x. Origins outside the
+    scene bounds clamp to the boundary cells."""
+    q = torch.clamp(((o - bmin) * inv_ext) * 4.0, 0.0, 3.0).to(torch.int32)
+    x, y, z = q[:, 0], q[:, 1], q[:, 2]
+    return ((x & 2) << 2) | ((y & 2) << 1) | (z & 2) | (x & 1)
+
+
+def _octant3(d: torch.Tensor) -> torch.Tensor:
+    return (
+        ((d[:, 0] > 0).to(torch.int32) << 2)
+        | ((d[:, 1] > 0).to(torch.int32) << 1)
+        | (d[:, 2] > 0).to(torch.int32)
+    )
+
+
+def octant_alive_key(d: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """4-bit key: dead lanes (bit 3) sort after all octants (bits 0-2)."""
+    return torch.where(active, _octant3(d), 8)
+
+
+def _ray_perm(o, d, active, morton_bounds):
+    """(perm, pos) ordering rays by (alive, octant[, origin morton]).
+
+    With `morton_bounds` = (bmin, inv_ext) the key is octant*16 + morton4
+    for live lanes and 128 for every dead lane (129 bins); without it, the
+    16-bin octant/alive key."""
+    if morton_bounds is None:
+        return _perm_from_key(octant_alive_key(d, active))
+    bmin, inv_ext = morton_bounds
+    key = torch.where(active, _octant3(d) * 16 + _morton4(o, bmin, inv_ext), 128)
+    return _perm_from_key(key, 129)
+
+
+def _sorted_rays(o, d, active, morton_bounds):
+    """(perm, pos, sorted_active). Live lanes sort before every dead one,
+    so the sorted active mask is iota < n_alive."""
+    perm, pos = _ray_perm(o, d, active, morton_bounds)
+    n_alive = torch.sum(active.to(torch.int32))
+    act_s = torch.arange(o.shape[0], dtype=torch.int32, device=o.device) < n_alive
+    return perm, pos, act_s
+
+
+def sorted_closest_packed(trace_fn, decode_fn, o, d, active, morton_bounds=None):
+    """trace_fn(o, d, active) -> packed (t, pp) on sorted rays; the two
+    fields are restored to original lane order and decode_fn(t, pp) runs
+    there (against the caller's original-order o/d)."""
+    perm, pos, act_s = _sorted_rays(o, d, active, morton_bounds)
+    pl = perm.long()
+    t, pp = trace_fn(o[pl], d[pl], act_s)
+    pos_l = pos.long()
+    return decode_fn(t[pos_l], pp[pos_l])
+
+
+def sorted_shadow(shadow_fn, o, d, active, morton_bounds=None):
+    """shadow_fn(o, d, active) -> (N,) bool on sorted rays, restored."""
+    perm, pos, act_s = _sorted_rays(o, d, active, morton_bounds)
+    pl = perm.long()
+    occ = shadow_fn(o[pl], d[pl], act_s)
+    return occ[pos.long()]

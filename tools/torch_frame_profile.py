@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""Where the time of the port's 1080p Cornell bench frame goes, on one GPU.
+
+Renders the bench frame (tess=24, sphere_tess=(48,72), leaf 8, SAH; spp=2,
+max_depth=3; 1920x1080 out, sun (0.3, 0.6)) through the port's Renderer:
+two warm-up frames, then FRAMES frames under torch.profiler. Prints the
+wall time per frame, the device-busy share (sum of GPU kernel and memcpy
+time over wall time), the share of the hand-written kernels, and the top
+GPU kernels by total time.
+
+Run from the repository root on a machine with one CUDA card:
+    python3 tools/torch_frame_profile.py
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import torch
+
+FRAMES = 3
+OWN_KERNELS = ("wide_kernel", "hist_kernel", "scan_kernel", "rank_kernel")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_frame_profile: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    from torch.profiler import ProfilerActivity, profile
+
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.models.cornell import (
+        build_cornell_scene,
+        cornell_camera,
+    )
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    _, scene = build_cornell_scene(tess=24, sphere_tess=(48, 72),
+                                   blas_leaf_size=8, bvh_method="sah")
+    r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3), scene,
+                 cornell_camera(1920, 1080), device="cuda")
+    r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+    for _ in range(2):
+        r.render().cpu()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(FRAMES):
+            r.render().cpu()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in events)
+    own_us = sum(e.self_device_time_total for e in events
+                 if any(k in e.key for k in OWN_KERNELS))
+    n_launch = sum(e.count for e in events)
+    print(f"{torch.cuda.get_device_name(0)}: {FRAMES} frames, wall "
+          f"{wall / FRAMES * 1e3:.3f} ms/frame, device busy "
+          f"{dev_us / 1e3 / FRAMES:.3f} ms/frame ({dev_us / 1e6 / wall:.1%} of wall), "
+          f"hand-written kernels {own_us / 1e3 / FRAMES:.3f} ms/frame, "
+          f"{n_launch / FRAMES:.0f} GPU ops/frame")
+    events.sort(key=lambda e: -e.self_device_time_total)
+    lines = [f"{e.self_device_time_total / 1e3 / FRAMES:10.3f} ms/frame "
+             f"{e.count / FRAMES:8.1f} calls/frame  {e.key[:110]}" for e in events]
+    for line in lines[:40]:
+        print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
