@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Drives the port's main path -- the 1920x1080 Cornell bench frame that
-`bench.py` renders (15,552 triangles, SAH BVH with leaf 8, spp=2,
-max_depth=3, internal 1280x704) -- through `Renderer` on the card, after
-checking every hand-written kernel of that path against its plain PyTorch
+Drives the port's two main paths through `Renderer` on the card, after
+checking every hand-written kernel of them against its plain PyTorch
 version on the card:
+- the 1920x1080 Cornell bench frame that `bench.py` renders (15,552
+  triangles, SAH BVH with leaf 8, spp=2, max_depth=3, internal 1280x704):
+  the wide kernels K1/K2 and the counting sort K3;
+- the 1920x1080 terrain frame of `examples/large_mesh.py` (BASELINE config
+  5: 1,048,576 triangles, SAH BVH with leaf 64, spp=2, max_depth=8): the
+  streaming kernels K4/K5 and K3 with the destination-treelet sort key.
 
+Phases:
   1. device: the card's name and power limit;
-  2. build: nvcc builds every kernel from csrc/ (sm_90a);
+  2. build: one nvcc per kernel source, all started together (sm_90a);
   3. K3 counting-sort positions vs the one-hot plain version, exact,
-     on 1,802,240 keys (129 and 16 bins);
+     on 1,802,240 keys (129, 16 and 258 bins), beside torch.argsort;
   4. K1 closest hit / K2 any-hit vs the plain skip-index walk on the bench
      scene: primary rays and 1,802,240 sorted bounce rays, held to the bar
      of tests/test_wide_kernel.py (hit masks agree, relative t mismatch
@@ -19,12 +24,29 @@ version on the card:
      instances;
   5. a 64x64 Cornell frame pair rendered with the kernels on the card and
      with the plain versions on the CPU, held to the golden-image bar;
-  6. the main path: one warm-up and 6 timed 1080p frames, each copied to
-     the host, with every kernel's launch count checked.
+  6. the Cornell main path: one warm-up and 6 timed 1080p frames, each
+     copied to the host, with every kernel's launch count checked;
+  7. terrain prep: the host BVH build and the streaming prep, timed apart;
+  8. K4 closest hit / K5 any-hit vs the plain walk on strided subsets of
+     the terrain's primary rays and 1,802,240 treelet-sorted bounce rays,
+     held to the bar of tests/test_stream_kernel.py (hit masks equal, no
+     |dt| > 1e-3 where both hit, prim agreement > 99.5%, K5 equal at t_max
+     5 and 1e29); K4/K5 timed on the full populations;
+  9. a 64x64 small-terrain (4,096 triangles) frame pair through the
+     integrator with a StreamScene, kernels on the card vs plain on the
+     CPU, held to the golden-image bar;
+ 10. the terrain main path: one warm-up and 3 timed 1080p frames, each
+     copied to the host, with every kernel's launch count checked.
 
-Prints the kernels' JSON line, the card line, and as the last line
-{"ok": true, "device": {...}}. Any failure raises and exits nonzero.
-Needs one CUDA card; run from the repository root: python3 chip_smoke.py
+Each kernel's bound is the larger of the bytes it must move (rays in and
+results out once, the scene tables read once) over 3.35 TB/s and the
+float32 operations it does on these rays (boxes and primitives tested, as
+the kernels' counting variant counts them) over 67 TFLOP/s.
+
+Prints each phase's seconds, the kernels' JSON line, the card line, and as
+the last line {"ok": true, "device": {...}}. Any failure raises and exits
+nonzero. Needs one CUDA card; run from the repository root:
+python3 chip_smoke.py
 """
 
 from __future__ import annotations
@@ -38,7 +60,21 @@ import numpy as np
 import torch
 
 FRAMES = 6
+TERRAIN_FRAMES = 3
 T_REL_TOL = 1e-3
+SUBSET = 65_536  # rays of each terrain population held to the plain walk
+K3_LANES = 1_802_240  # 2 x 901,120: the frame's sorted bounce batches
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations per test, counted in csrc/trace_common.cuh: a slab
+# test is 6 sub, 6 mul, 11 min/max and 2 compares; the u8 dequantization of
+# a K4/K5 child box adds 6 mul and 6 add; a Moller-Trumbore test is 46
+# mul/add/sub/div and 8 compares (sphere slots are counted at that rate).
+BOX_OPS = 25
+QBOX_OPS = BOX_OPS + 12
+PRIM_OPS = 54
 
 
 def log(*a):
@@ -73,12 +109,30 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    HBM rate and float32 operations over the float32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def trace_bound(n: int, work, any_hit: bool, box_ops: int, tables) -> dict:
+    """Bound of one K1/K2/K4/K5 call on n rays: o, d, t_max in, (t, pp) or
+    occ out, `tables` read once; `work` = (boxes, primitives) tested."""
+    n_bytes = n * (28 + (1 if any_hit else 8)) + sum(t.numel() * t.element_size()
+                                                      for t in tables)
+    boxes, prims = work
+    return bound(n_bytes, boxes * box_ops + prims * PRIM_OPS)
+
+
 def phase_k3(dev, results):
     from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos
 
-    n = 1_802_240
+    n = K3_LANES
     rng = np.random.default_rng(7)
-    for bins in (129, 16):
+    for bins in (129, 16, 258):
         live = int(n * 0.7)
         key = np.concatenate([
             rng.integers(0, bins - 1, size=live), np.full(n - live, bins - 1)
@@ -93,8 +147,15 @@ def phase_k3(dev, results):
         if bins == 129:
             ms = cuda_ms(lambda: sortpos.counting_pos(kt, bins), 20)
             plain_ms = cuda_ms(lambda: sortpos.counting_pos_plain(kt, bins), 3)
-            log(f"K3 {n} lanes x 129 bins: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            results["sortpos"] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms)
+            # the library call: a stable argsort gives the inverse of pos
+            lib_ms = cuda_ms(lambda: torch.argsort(kt, stable=True), 20)
+            inv = torch.argsort(kt, stable=True)
+            check(bool(torch.equal(got.long()[inv], torch.arange(n, device=dev))),
+                  "K3 pos is not the inverse of the stable argsort")
+            log(f"K3 {n} lanes x 129 bins: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"torch.argsort(stable) {lib_ms:.4f} ms")
+            results["sortpos"] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                                      **bound(8.0 * n, 0), library_ms=lib_ms)
 
 
 def _trace_bar(ws, o, d, label):
@@ -134,20 +195,42 @@ def _trace_bar(ws, o, d, label):
     return k1_err, k2_err
 
 
+def _bounce_rays(scene, hit, o, d, seed, sort_args):
+    """2 scatter directions per primary hit (normal-flipped unit normals
+    from a numpy seed), sorted as the frame sorts its bounce batches.
+    Returns (sorted o, sorted d, live mask, live count)."""
+    from ilgpu_raytracing_tpu_torch.ops import sort, traverse
+
+    dev = o.device
+    n = o.shape[0]
+    surf = traverse.shade_hits(scene, hit, o, d)
+    rng = np.random.default_rng(seed)
+    rnd = torch.as_tensor(rng.normal(size=(2 * n, 3)).astype(np.float32), device=dev)
+    nrm = surf.normal.repeat(2, 1)
+    rnd = rnd / rnd.norm(dim=1, keepdim=True)
+    dirs = torch.where(((rnd * nrm).sum(1) < 0)[:, None], -rnd, rnd)
+    org = (surf.pos + surf.normal * 0.0025).repeat(2, 1)
+    alive = hit.hit.repeat(2)
+    perm, _pos = sort._ray_perm(org, dirs, alive, *sort_args)
+    pl = perm.long()
+    n_alive = int(alive.sum())
+    act = torch.arange(2 * n, device=dev) < n_alive
+    return org[pl].contiguous(), dirs[pl].contiguous(), act, n_alive
+
+
 def phase_k1_k2(dev, results):
     from ilgpu_raytracing_tpu_torch.config import RenderConfig
     from ilgpu_raytracing_tpu_torch.models.cornell import (
         build_cornell_scene,
         cornell_camera,
     )
-    from ilgpu_raytracing_tpu_torch.ops import rays, sort, traverse
+    from ilgpu_raytracing_tpu_torch.ops import rays
     from ilgpu_raytracing_tpu_torch.ops.cuda import wide
     from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
 
     t0 = time.monotonic()
     _, scene = build_cornell_scene(tess=24, sphere_tess=(48, 72),
-                                   blas_leaf_size=8, bvh_method="sah")
-    scene = scene.to(dev)
+                                   blas_leaf_size=8, bvh_method="sah", device=dev)
     ws = wide.prepare_scene(scene)
     log(f"bench scene: {scene.n_tris} tris, {ws.wide_child.numel() // 8} wide "
         f"nodes, per-thread stack bound {ws.thread_stack}, prep "
@@ -163,24 +246,12 @@ def phase_k1_k2(dev, results):
     log(f"K1 primary {n} lanes: kernel {k1_primary_ms:.4f} ms, plain "
         f"{k1_primary_plain:.4f} ms")
 
-    # bounce-like rays: 2 cosine-ish scatter directions per primary hit, from
-    # a numpy seed, sorted by (alive, octant, origin morton) as the frame does
+    # bounce-like rays sorted by (alive, octant, origin morton) as the frame does
     hit = wide.trace_closest_wide(ws, o, d)
-    surf = traverse.shade_hits(scene, hit, o, d)
-    rng = np.random.default_rng(11)
-    rnd = torch.as_tensor(rng.normal(size=(2 * n, 3)).astype(np.float32), device=dev)
-    nrm = surf.normal.repeat(2, 1)
-    rnd = rnd / rnd.norm(dim=1, keepdim=True)
-    dirs = torch.where(((rnd * nrm).sum(1) < 0)[:, None], -rnd, rnd)
-    org = (surf.pos + surf.normal * 0.0025).repeat(2, 1)
-    alive = hit.hit.repeat(2)
     bmin = torch.amin(scene.inst_bmin, dim=0)
     bmax = torch.amax(scene.inst_bmax, dim=0)
-    perm, _pos = sort._ray_perm(org, dirs, alive, (bmin, 1.0 / (bmax - bmin)))
-    pl = perm.long()
-    bo, bd = org[pl].contiguous(), dirs[pl].contiguous()
-    n_alive = int(alive.sum())
-    act = torch.arange(2 * n, device=dev) < n_alive
+    bo, bd, act, n_alive = _bounce_rays(scene, hit, o, d, 11,
+                                        ((bmin, 1.0 / (bmax - bmin)),))
     e1, e2 = _trace_bar(ws, bo[:n_alive].contiguous(), bd[:n_alive].contiguous(),
                         "bounce (sorted, live lanes)")
     k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
@@ -195,8 +266,18 @@ def phase_k1_k2(dev, results):
         f"{k1_plain:.4f} ms")
     log(f"K2 bounce {nb} lanes ({n_alive} live): kernel {k2_ms:.4f} ms, plain "
         f"{k2_plain:.4f} ms")
-    results["wide_closest"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain)
-    results["wide_shadow"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain)
+    tables = (ws.wide_bounds, ws.wide_child, ws.wide_perm, ws.tri_rows,
+              ws.sph_rows, ws.inst_i, ws.inst_f)
+    w1 = wide.count_work(ws, bo, bd, tmb, any_hit=False)
+    w2 = wide.count_work(ws, bo, bd, tms, any_hit=True)
+    log(f"K1 bounce work: {w1[0]} boxes, {w1[1]} primitives; K2: {w2[0]} boxes, "
+        f"{w2[1]} primitives")
+    results["wide_closest"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
+                                   **trace_bound(nb, w1, False, BOX_OPS, tables),
+                                   library_ms=None)
+    results["wide_shadow"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
+                                  **trace_bound(nb, w2, True, BOX_OPS, tables),
+                                  library_ms=None)
     return scene
 
 
@@ -228,39 +309,38 @@ def phase_other_scenes(dev):
     v, t = _quad_grid((-2, 0, -2), (2, 0, -2), (-2, 0, 2), 6)
     b.add_mesh_instance(v, t, object_to_world=translation_affine((0, -0.6, 0)))
     scenes = (
-        ("default 6-sphere", build_default_scene(single_instance=False)[1],
+        ("default 6-sphere", build_default_scene(single_instance=False, device=dev)[1],
          Camera.create(1280, 720)),
-        ("transformed", b.commit(),
+        ("transformed", b.commit(dev),
          Camera.look_at((0.5, 1.0, 4.0), (0, 0, 0), (0, 1, 0), 50.0, 1280 / 720)),
     )
     for label, scene, cam in scenes:
-        ws = wide.prepare_scene(scene.to(dev))
+        ws = wide.prepare_scene(scene)
         o, d = rays.generate_primary_rays(cam, 1280, 720, dev)
         _trace_bar(ws, o.contiguous(), d, label)
 
 
-def _render_color(scene, device, frames=2):
-    """2 locked-noise frames of the integrator (tests/test_golden.py
-    protocol) with the parity knobs; returns the last linear color."""
+def _render_color(scene, device, prepare, camera, frames=2):
+    """2 locked-noise 64x64 frames of the integrator (tests/test_golden.py
+    protocol) with the parity knobs on the kernel scene `prepare(scene)`;
+    returns the last linear color."""
     from ilgpu_raytracing_tpu_torch.config import PARITY_KNOBS, RenderConfig
-    from ilgpu_raytracing_tpu_torch.models.cornell import cornell_camera
     from ilgpu_raytracing_tpu_torch.ops import integrator, sky
-    from ilgpu_raytracing_tpu_torch.ops.cuda import wide
     from ilgpu_raytracing_tpu_torch.ops.restir import Reservoirs
 
     cfg = RenderConfig(spp=2, max_depth=3, **PARITY_KNOBS)
     w = h = 64
     scene = scene.to(device)
-    ws = wide.prepare_scene(scene)
-    cam = cornell_camera(w, h)
+    ks = prepare(scene)
+    cam = camera(w, h)
     sun = sky.sun_direction(cfg.sun_azimuth, cfg.sun_elevation)
     ra, rb = Reservoirs.empty(w * h, device), Reservoirs.empty(w * h, device)
     color = None
     for f in range(frames):
-        gb = integrator.primary_visibility(scene, cam, w, h, 0, ws)
+        gb = integrator.primary_visibility(scene, cam, w, h, 0, ks)
         rp, rc = (ra, rb) if f % 2 == 0 else (rb, ra)
         color, _, _, rc, _ = integrator.path_trace(
-            scene, gb, cam, cam, rp, rc, f, 1234, sun, cfg, w, h, ws)
+            scene, gb, cam, cam, rp, rc, f, 1234, sun, cfg, w, h, ks)
         if f % 2 == 0:
             rb = rc
         else:
@@ -268,71 +348,246 @@ def _render_color(scene, device, frames=2):
     return color.cpu().numpy()
 
 
-def phase_parity(dev):
-    from ilgpu_raytracing_tpu_torch.models.cornell import build_cornell_scene
-
-    _, scene = build_cornell_scene(tess=4, sphere_tess=(8, 12))
-    got = _render_color(scene, dev)
-    want = _render_color(scene, torch.device("cpu"))
+def _parity(dev, label, scene, prepare, camera):
+    """The 64x64 frame pair with the kernels on the card against the plain
+    versions on the CPU, held to the golden-image bar."""
+    got = _render_color(scene, dev, prepare, camera)
+    want = _render_color(scene, torch.device("cpu"), prepare, camera)
     diff = np.abs(got - want)
     frac = float((diff.max(axis=-1) > 0.1).mean())
-    check(np.isfinite(got).all(), "64x64 frame on the card is not finite")
-    check(diff.mean() < 0.02, f"64x64 parity: mean |diff| {diff.mean():.5f}")
-    check(frac < 0.01, f"64x64 parity: {frac:.3%} pixels off by > 0.1")
-    log(f"64x64 Cornell kernels-on-card vs plain-on-CPU: mean |diff| "
+    check(np.isfinite(got).all(), f"64x64 {label} frame on the card is not finite")
+    check(diff.mean() < 0.02, f"64x64 {label} parity: mean |diff| {diff.mean():.5f}")
+    check(frac < 0.01, f"64x64 {label} parity: {frac:.3%} pixels off by > 0.1")
+    check(float(got.std()) > 0.0, f"64x64 {label} frame is one colour")
+    log(f"64x64 {label} kernels-on-card vs plain-on-CPU: mean |diff| "
         f"{diff.mean():.6f}, pixels > 0.1: {frac:.4%}")
 
 
-def phase_main_path(dev, scene):
-    from ilgpu_raytracing_tpu_torch.config import RenderConfig
-    from ilgpu_raytracing_tpu_torch.models.cornell import cornell_camera
-    from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos, wide
-    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+def phase_parity(dev):
+    from ilgpu_raytracing_tpu_torch.models.cornell import (
+        build_cornell_scene,
+        cornell_camera,
+    )
+    from ilgpu_raytracing_tpu_torch.ops.cuda import wide
 
-    out_w, out_h = 1920, 1080
-    cfg = RenderConfig(spp=2, max_depth=3)
-    r = Renderer(out_w, out_h, cfg, scene, cornell_camera(out_w, out_h), device=dev)
-    r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+    _, scene = build_cornell_scene(tess=4, sphere_tess=(8, 12), device="cpu")
+    _parity(dev, "Cornell", scene, wide.prepare_scene, cornell_camera)
+
+
+def _reset_counts():
+    from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos, stream, wide
+
+    for counts in (wide.LAUNCHES, stream.LAUNCHES, sortpos.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _read_counts() -> dict:
+    from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos, stream, wide
+
+    return {**wide.LAUNCHES, **stream.LAUNCHES, **sortpos.LAUNCHES}
+
+
+def _drive(label, r, frames, want_per_frame):
+    """One warm-up and `frames` timed frames of the Renderer, each copied to
+    the host, with the launch counts set to 0 just before the timed frames
+    and read just after. Returns the launch counts of the timed frames."""
+    cfg = r.cfg
     r.render().cpu()  # warm-up
     torch.cuda.synchronize()
 
-    for counts in (wide.LAUNCHES, sortpos.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    _reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     frame_ms = []
     eff = 0.0
-    for _ in range(FRAMES):
+    for _ in range(frames):
         tf = time.monotonic()
         packed = r.render().cpu()
         torch.cuda.synchronize()
         frame_ms.append((time.monotonic() - tf) * 1e3)
         eff += float(r._last_aux["eff_rays"])
     dt = time.monotonic() - t0
-    launches = {**wide.LAUNCHES, **sortpos.LAUNCHES}
+    launches = _read_counts()
 
     in_n = r.in_w * r.in_h
     rays_per_frame = in_n * (1 + cfg.spp * cfg.max_depth * 2)
-    log(f"main path: {out_w}x{out_h} out, {r.in_w}x{r.in_h} internal, "
-        f"{FRAMES} frames in {dt:.4f} s")
-    log(f"frame ms: {[round(x, 3) for x in frame_ms]}")
-    log(f"ms/frame {dt / FRAMES * 1e3:.3f}  fps {FRAMES / dt:.4f}  "
-        f"Mrays/s {rays_per_frame * FRAMES / dt / 1e6:.4f} "
+    log(f"{label}: {r.out_w}x{r.out_h} out, {r.in_w}x{r.in_h} internal, "
+        f"{frames} frames in {dt:.4f} s")
+    log(f"{label} frame ms: {[round(x, 3) for x in frame_ms]}")
+    log(f"{label}: ms/frame {dt / frames * 1e3:.3f}  fps {frames / dt:.4f}  "
+        f"Mrays/s {rays_per_frame * frames / dt / 1e6:.4f} "
         f"({rays_per_frame} dispatched rays/frame)  effective Mrays/s "
-        f"{eff / dt / 1e6:.4f} ({eff / FRAMES:.0f} effective rays/frame)")
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    per_frame = {k: v / FRAMES for k, v in launches.items()}
-    log(f"launches per frame: {per_frame}")
-    want = {"wide_closest": 3, "wide_shadow": 5, "sortpos": 6}
-    check(per_frame == want, f"launch counts {per_frame} != {want}")
+        f"{eff / dt / 1e6:.4f} ({eff / frames:.0f} effective rays/frame)")
+    log(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    per_frame = {k: v / frames for k, v in launches.items()}
+    log(f"{label} launches per frame: {per_frame}")
+    check(per_frame == want_per_frame,
+          f"{label} launch counts {per_frame} != {want_per_frame}")
 
     img = packed.numpy()
     color = r._last_aux["color"]
-    check(bool(torch.isfinite(color).all()), "1080p frame color has NaN/Inf")
-    check(len(np.unique(img)) > 1, "1080p frame is one colour")
-    check(img.shape == (out_w * out_h,), f"packed frame shape {img.shape}")
+    check(bool(torch.isfinite(color).all()), f"{label} frame color has NaN/Inf")
+    check(len(np.unique(img)) > 1, f"{label} frame is one colour")
+    check(img.shape == (r.out_w * r.out_h,), f"{label} packed frame shape {img.shape}")
     return launches
+
+
+def phase_main_path(dev, scene):
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.models.cornell import cornell_camera
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3), scene,
+                 cornell_camera(1920, 1080), device=dev)
+    r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+    want = {"wide_closest": 3, "wide_shadow": 5, "stream_closest": 0,
+            "stream_shadow": 0, "sortpos": 6}
+    return _drive("Cornell main path", r, FRAMES, want)
+
+
+def phase_terrain_prep(dev):
+    """The 1,048,576-triangle terrain of examples/large_mesh.py: host BVH
+    build (SAH, leaf 64) and streaming prep, timed apart."""
+    from ilgpu_raytracing_tpu_torch.models.terrain import build_terrain_scene
+    from ilgpu_raytracing_tpu_torch.ops.cuda import stream
+
+    t0 = time.monotonic()
+    _, scene = build_terrain_scene(device=dev)
+    t_build = time.monotonic() - t0
+    t0 = time.monotonic()
+    ss = stream.prepare_stream(scene)
+    torch.cuda.synchronize()
+    t_prep = time.monotonic() - t0
+    check(scene.n_tris == 1_048_576, f"terrain has {scene.n_tris} triangles")
+    n_rows = ss.tri_rows.shape[0]
+    log(f"terrain: {scene.n_tris} tris, BVH build {t_build:.3f} s, prepare_stream "
+        f"{t_prep:.3f} s; {ss.wide_child.numel() // 8} wide nodes, {n_rows} leaf rows "
+        f"({ss.tri_rows.numel() * 4} bytes of tri_rows), most rows in a leaf "
+        f"{ss.rows_per_leaf}, per-thread stack bound {ss.thread_stack}")
+    return scene, ss
+
+
+def _stream_bar(ss, o, d, label):
+    """K4/K5 vs plain on one ray set, to the bar of
+    tests/test_stream_kernel.py: hit masks equal, no |dt| > 1e-3 where both
+    hit, prim agreement > 99.5%, K5 equal at t_max 5 and 1e29. Returns K4's
+    max |dt| and 1.0 if K5 differs anywhere."""
+    from ilgpu_raytracing_tpu_torch.ops.cuda import stream
+    from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
+
+    n = o.shape[0]
+    tm = torch.full((n,), T_INF, device=o.device)
+    t0 = time.monotonic()
+    t_k, pp_k = stream.trace_closest_stream_packed(ss, o, d)
+    t_p, pp_p = stream.trace_closest_plain(ss, o, d, tm)
+    torch.cuda.synchronize()
+    hit_k, hit_p = pp_k >= 0, pp_p >= 0
+    n_hit_diff = int((hit_k != hit_p).sum())
+    check(n_hit_diff == 0, f"K4 {label}: hit masks differ on {n_hit_diff} rays")
+    both = hit_k & hit_p
+    dt = (t_k - t_p).abs()[both]
+    k4_err = float(dt.max()) if bool(both.any()) else 0.0
+    n_far = int((dt > 1e-3).sum())
+    check(n_far == 0, f"K4 {label}: |dt| > 1e-3 on {n_far} rays")
+    agree = float((pp_k == pp_p)[both].float().mean()) if bool(both.any()) else 1.0
+    check(agree > 0.995, f"K4 {label}: prim agreement {agree:.5f}")
+    log(f"K4 {label} n={n}: hits {int(hit_k.sum())}, hit masks equal, max |dt| "
+        f"{k4_err:.3e}, prim agreement {agree:.6f} ({time.monotonic() - t0:.2f} s)")
+    k5_err = 0.0
+    for t_max in (5.0, 1e29):
+        t0 = time.monotonic()
+        occ_k = stream.shadow_occlusion_stream(ss, o, d, t_max)
+        occ_p = stream.shadow_plain(ss, o, d, torch.full((n,), t_max, device=o.device))
+        n_diff = int((occ_k != occ_p).sum())
+        check(n_diff == 0, f"K5 {label} t_max={t_max}: {n_diff} of {n} differ")
+        log(f"K5 {label} t_max={t_max:g}: occluded {int(occ_k.sum())}, equal to "
+            f"plain on all {n} rays ({time.monotonic() - t0:.2f} s)")
+    return k4_err, k5_err
+
+
+def _strided(x, n_live, k):
+    """k rays at an even stride over the first n_live rows of x."""
+    idx = torch.arange(0, n_live, max(1, n_live // k), device=x.device)[:k]
+    return x[idx].contiguous()
+
+
+def phase_k4_k5(dev, results, scene, ss):
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.models.terrain import terrain_camera
+    from ilgpu_raytracing_tpu_torch.ops import rays
+    from ilgpu_raytracing_tpu_torch.ops.cuda import stream
+    from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
+
+    in_w, in_h = RenderConfig().internal_resolution(1920, 1080)
+    o, d = rays.generate_primary_rays(terrain_camera(1920, 1080), in_w, in_h, dev)
+    o = o.contiguous()
+    n = o.shape[0]
+    log(f"terrain rays: {n} primary, held to the plain walk on {SUBSET} of each "
+        f"population")
+    k4_err, k5_err = _stream_bar(ss, _strided(o, n, SUBSET), _strided(d, n, SUBSET),
+                                 "primary")
+    k4_primary_ms = cuda_ms(lambda: stream.trace_closest_stream_packed(ss, o, d), 10)
+    log(f"K4 primary {n} lanes: kernel {k4_primary_ms:.4f} ms")
+
+    hit = stream.trace_closest_stream(ss, o, d)
+    bo, bd, act, n_alive = _bounce_rays(scene, hit, o, d, 11, (None, ss.sortkey_bounds))
+    e4, e5 = _stream_bar(ss, _strided(bo, n_alive, SUBSET), _strided(bd, n_alive, SUBSET),
+                         "bounce (treelet-sorted, live lanes)")
+    k4_err, k5_err = max(k4_err, e4), max(k5_err, e5)
+    nb = 2 * n
+    tmb = torch.where(act, torch.full((nb,), T_INF, device=dev), torch.zeros(nb, device=dev))
+    tms = torch.where(act, torch.full((nb,), 1e29, device=dev), torch.zeros(nb, device=dev))
+    k4_ms = cuda_ms(lambda: stream.trace_closest_stream_packed(ss, bo, bd, active=act), 10)
+    k5_ms = cuda_ms(lambda: stream.shadow_occlusion_stream(ss, bo, bd, 1e29, active=act), 10)
+    t0 = time.monotonic()
+    k4_plain = cuda_ms(lambda: stream.trace_closest_plain(ss, bo, bd, tmb), 1)
+    k5_plain = cuda_ms(lambda: stream.shadow_plain(ss, bo, bd, tms), 1)
+    log(f"K4 bounce {nb} lanes ({n_alive} live): kernel {k4_ms:.4f} ms, plain "
+        f"{k4_plain:.4f} ms")
+    log(f"K5 bounce {nb} lanes ({n_alive} live): kernel {k5_ms:.4f} ms, plain "
+        f"{k5_plain:.4f} ms (plain timings {time.monotonic() - t0:.1f} s)")
+    tables = (ss.wide_frame, ss.wide_qbounds, ss.wide_child, ss.wide_perm,
+              ss.tri_rows, ss.sph_rows, ss.inst_i, ss.inst_f)
+    w4 = stream.count_work(ss, bo, bd, tmb, any_hit=False)
+    w5 = stream.count_work(ss, bo, bd, tms, any_hit=True)
+    log(f"K4 bounce work: {w4[0]} boxes, {w4[1]} primitives; K5: {w5[0]} boxes, "
+        f"{w5[1]} primitives")
+    results["stream_closest"] = dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain,
+                                     **trace_bound(nb, w4, False, QBOX_OPS, tables),
+                                     library_ms=None)
+    results["stream_shadow"] = dict(max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain,
+                                    **trace_bound(nb, w5, True, QBOX_OPS, tables),
+                                    library_ms=None)
+
+
+def phase_terrain_parity(dev):
+    from ilgpu_raytracing_tpu_torch.models.terrain import (
+        build_terrain_scene,
+        terrain_camera,
+    )
+    from ilgpu_raytracing_tpu_torch.ops.cuda import stream
+
+    _, scene = build_terrain_scene(grid_x=64, grid_z=32, device="cpu")
+    _parity(dev, "small terrain (StreamScene)", scene, stream.prepare_stream,
+            terrain_camera)
+
+
+def phase_terrain_main(dev, scene):
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.models.terrain import terrain_camera
+    from ilgpu_raytracing_tpu_torch.ops.cuda import stream
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    t0 = time.monotonic()
+    r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=8), scene,
+                 terrain_camera(1920, 1080), device=dev)
+    check(isinstance(r.wscene, stream.StreamScene), "terrain did not get a StreamScene")
+    log(f"terrain Renderer ready in {time.monotonic() - t0:.3f} s (streaming prep)")
+    depth = r.cfg.max_depth
+    want = {"wide_closest": 0, "wide_shadow": 0, "stream_closest": depth,
+            "stream_shadow": depth + 2, "sortpos": 2 * depth}
+    return _drive("terrain main path", r, TERRAIN_FRAMES, want)
 
 
 def main() -> int:
@@ -341,6 +596,7 @@ def main() -> int:
         return 2
     from ilgpu_raytracing_tpu_torch.ops import cuda as cu
 
+    t_start = time.monotonic()
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     card = smi_line()
@@ -351,11 +607,23 @@ def main() -> int:
     log(f"build: nvcc {' '.join(cu.NVCC_FLAGS)}: {secs:.2f} s")
 
     results: dict[str, dict] = {}
-    phase_k3(dev, results)
-    bench_scene = phase_k1_k2(dev, results)
-    phase_other_scenes(dev)
-    phase_parity(dev)
-    launches = phase_main_path(dev, bench_scene)
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        log(f"phase {name}: {time.monotonic() - t0:.1f} s")
+        return out
+
+    timed("K3", phase_k3, dev, results)
+    bench_scene = timed("K1/K2", phase_k1_k2, dev, results)
+    timed("other scenes", phase_other_scenes, dev)
+    timed("Cornell parity", phase_parity, dev)
+    cornell_counts = timed("Cornell main path", phase_main_path, dev, bench_scene)
+    terrain, ss = timed("terrain prep", phase_terrain_prep, dev)
+    timed("K4/K5", phase_k4_k5, dev, results, terrain, ss)
+    del ss
+    timed("terrain parity", phase_terrain_parity, dev)
+    terrain_counts = timed("terrain main path", phase_terrain_main, dev, terrain)
 
     meta = {
         "wide_closest": ("ilgpu_raytracing_tpu_torch/csrc/wide_trace.cu",
@@ -364,12 +632,19 @@ def main() -> int:
                         "ilgpu_raytracing_tpu/ops/pallas/wide_kernel.py:1073"),
         "sortpos": ("ilgpu_raytracing_tpu_torch/csrc/sortpos.cu",
                     "ilgpu_raytracing_tpu/ops/pallas/sortpos_kernel.py:135"),
+        "stream_closest": ("ilgpu_raytracing_tpu_torch/csrc/stream_trace.cu",
+                           "ilgpu_raytracing_tpu/ops/pallas/stream_kernel.py:906"),
+        "stream_shadow": ("ilgpu_raytracing_tpu_torch/csrc/stream_trace.cu",
+                          "ilgpu_raytracing_tpu/ops/pallas/stream_kernel.py:996"),
     }
+    # launches: each kernel's count over the timed frames of the main paths
+    # (K3 runs on both)
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=launches[name], **results[name])
+             launches=cornell_counts[name] + terrain_counts[name], **results[name])
         for name, (src, rep) in meta.items()
     ]
+    log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,158 @@
+// K4 + K5: closest-hit and any-hit walks of the quantized 8-wide BVH of a
+// large scene (150k to 4M triangles), one thread per ray.
+//
+// Replaces the TPU kernels of ilgpu_raytracing_tpu/ops/pallas/stream_kernel.py:
+//   K4 _make_closest_kernel (launched by _run_trace, pallas_call at :906)
+//   K5 _make_shadow_kernel  (launched by _run_shadow, pallas_call at :996)
+// and computes what they compute: per ray, over every instance, world-AABB
+// entry, world->object transform, an 8-wide BVH walk whose child boxes are
+// u8-quantized against a per-node frame (lo + float(q) * scale, dequantized
+// in exactly that order, unfused), and coarse leaves of up to 16 consecutive
+// 8-slot rows, tested with the leaf predicates of K1/K2. The closest record
+// is packed as prim | (inst*4 + kind) << 23, miss = -1.
+//
+// Exactness: the host (ops/cuda/stream.py _quantize_bounds) rounds every
+// quantized box outward in this very arithmetic, with a 2-ulp margin. Built
+// with --fmad=false, the walk visits a superset of the exact-box visits, so
+// t and the hit and occlusion masks equal the plain skip-index walk's.
+//
+// What bounds it on an H100: leaf fetches from HBM. The 1,048,576-triangle
+// terrain packs into about 131k leaf rows of 512 bytes (about 67 MB), more
+// than the 50 MB L2, so unlike K1 on the bench scene the leaf rows of a
+// divergent warp come from device memory; the node tables (about 100 B per
+// wide node, a few hundred kB) stay in L2. A leaf visit costs up to 16 rows
+// x 8 Moller-Trumbore tests, so the kernel also spends many float
+// operations per byte.
+//
+// What this design does about it: the TPU kernel's packet shape (2048-lane
+// tiles behind one scalar SMEM stack, FRONT-node frontiers, subtile want
+// masks, a double-buffered 8 KB DMA per leaf) answers TPU constraints and is
+// not carried over. As in K1, each thread keeps its own DFS stack in local
+// memory (bound 7 * wide depth + 1 from the host; overflow sets a flag and
+// the wrapper raises), orders children by its own octant through wide_perm,
+// and tests hit leaves near-first so t_best tightens early. A triangle slot
+// is 48 bytes, read as three 16-byte loads. The sort key of the bounce
+// batches (destination treelet, ops/sort.py) groups rays that fetch the
+// same leaves. Warp-cooperative leaf staging in shared memory (the DMA idea
+// redone for Hopper) is later work.
+
+#include "trace_common.cuh"
+
+namespace {
+
+using namespace trace;
+
+constexpr int SPP_PRIM_BITS = 23;
+constexpr int ENC_BASE = 32;  // leaf encoding -(first_row * 32 + n_rows) - 2
+
+struct StreamWalker {
+  const float* __restrict__ wf;   // (W*6) per node lo.xyz, (ext/255).xyz
+  const int* __restrict__ wq;     // (W*16) per child 2 words of packed u8s
+  const int* __restrict__ wc;     // (W*8) >=0 inner, -1 empty, <=-2 leaf
+  const int* __restrict__ wp;     // (W*8) per-octant child order, 4 bits/rank
+  const float* __restrict__ tri;  // (Lt*128) triangle rows, 8 slots each
+  const float* __restrict__ sph;  // (Ls*128) sphere rows, 8 slots each
+  int stack_cap;
+
+  template <bool ANY_HIT, bool COUNT>
+  __device__ bool walk(const Ray& r, int root, bool is_tri, int inst_bits,
+                       float t_limit, float& t_best, int& pp, bool& occ,
+                       Work& work) const {
+    int stack[MAX_STACK];
+    int sp = 0;
+    stack[sp++] = root;
+    const int octant = (r.dx > 0.0f ? 4 : 0) + (r.dy > 0.0f ? 2 : 0) +
+                       (r.dz > 0.0f ? 1 : 0);
+    const float* __restrict__ rows = is_tri ? tri : sph;
+    while (sp > 0) {
+      const int wid = stack[--sp];
+      const float* __restrict__ f = wf + wid * 6;
+      const float flox = f[0], floy = f[1], floz = f[2];
+      const float fsx = f[3], fsy = f[4], fsz = f[5];
+      const unsigned perm = static_cast<unsigned>(wp[wid * WIDTH + octant]);
+      unsigned inner = 0;
+#pragma unroll
+      for (int rank = 0; rank < WIDTH; ++rank) {
+        const int c8 = (perm >> (rank * 4)) & 7;
+        const int child = wc[wid * WIDTH + c8];
+        if (child == EMPTY) continue;
+        if (COUNT) ++work.boxes;
+        // dequantize lo + float(q) * scale, unfused (--fmad=false)
+        const unsigned w0 = static_cast<unsigned>(wq[wid * 16 + c8 * 2]);
+        const unsigned w1 = static_cast<unsigned>(wq[wid * 16 + c8 * 2 + 1]);
+        const float x0 = flox + static_cast<float>(w0 & 255u) * fsx;
+        const float y0 = floy + static_cast<float>((w0 >> 8) & 255u) * fsy;
+        const float z0 = floz + static_cast<float>((w0 >> 16) & 255u) * fsz;
+        const float x1 = flox + static_cast<float>((w0 >> 24) & 255u) * fsx;
+        const float y1 = floy + static_cast<float>(w1 & 255u) * fsy;
+        const float z1 = floz + static_cast<float>((w1 >> 8) & 255u) * fsz;
+        if (!slab6(x0, y0, z0, x1, y1, z1, r, ANY_HIT ? t_limit : t_best)) continue;
+        if (child >= 0) {
+          inner |= 1u << rank;
+          continue;
+        }
+        const int enc = -child - 2;
+        const int n_rows = enc % ENC_BASE;
+        const float* __restrict__ row =
+            rows + static_cast<size_t>(enc / ENC_BASE) * ROW;
+        for (int k = 0; k < n_rows; ++k) {
+          if (test_row<ANY_HIT, COUNT>(row + static_cast<size_t>(k) * ROW,
+                                       ROW_SLOTS, is_tri, r, inst_bits, t_limit,
+                                       t_best, pp, work)) {
+            occ = true;
+            return true;
+          }
+        }
+      }
+      // far-first pushes leave the nearest inner child on top
+#pragma unroll
+      for (int rank = WIDTH - 1; rank >= 0; --rank) {
+        if (!((inner >> rank) & 1u)) continue;
+        if (sp >= stack_cap) return false;
+        stack[sp++] = wc[wid * WIDTH + ((perm >> (rank * 4)) & 7)];
+      }
+    }
+    return true;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+const char* stream_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int stream_max_stack() { return trace::MAX_STACK; }
+
+// K4: closest hit. t_out/pp_out (n,), overflow (1,) zeroed by the caller;
+// work (2,) zeroed, or null (see launch_trace).
+int stream_trace_closest(const float* o, const float* d, const float* tmax, int n,
+                         const float* wf, const int* wq, const int* wc,
+                         const int* wp, const float* tri_rows,
+                         const float* sph_rows, const int* inst_i,
+                         const float* inst_f, int n_inst, int stack_cap,
+                         float* t_out, int* pp_out, int* overflow,
+                         unsigned long long* work, void* stream) {
+  const StreamWalker wk{wf, wq, wc, wp, tri_rows, sph_rows, stack_cap};
+  return trace::launch_trace<false>(o, d, tmax, n, wk, inst_i, inst_f, n_inst,
+                                    SPP_PRIM_BITS, t_out, pp_out, nullptr,
+                                    overflow, work, stream);
+}
+
+// K5: any-hit occlusion within (T_EPS, tmax). occ_out (n,) bool.
+int stream_trace_shadow(const float* o, const float* d, const float* tmax, int n,
+                        const float* wf, const int* wq, const int* wc,
+                        const int* wp, const float* tri_rows,
+                        const float* sph_rows, const int* inst_i,
+                        const float* inst_f, int n_inst, int stack_cap,
+                        bool* occ_out, int* overflow, unsigned long long* work,
+                        void* stream) {
+  const StreamWalker wk{wf, wq, wc, wp, tri_rows, sph_rows, stack_cap};
+  return trace::launch_trace<true>(o, d, tmax, n, wk, inst_i, inst_f, n_inst,
+                                   SPP_PRIM_BITS, nullptr, nullptr, occ_out,
+                                   overflow, work, stream);
+}
+
+}  // extern "C"

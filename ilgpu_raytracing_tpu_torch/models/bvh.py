@@ -1,4 +1,5 @@
-"""Skip-index BVH builder (host, numpy; port of models/bvh.py, build only).
+"""Skip-index BVH builder (host, numpy; port of models/bvh.py: build and
+the treelet cut of the streaming sort key).
 
 Median split on the largest-extent axis with the reference's tie-break
 rules, RIGHT subtree emitted before LEFT so a left subtree's miss pointer is
@@ -123,3 +124,58 @@ def triangle_bounds(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray):
     bmin = np.minimum(v0, np.minimum(v1, v2))
     bmax = np.maximum(v0, np.maximum(v1, v2))
     return bmin, bmax
+
+
+def cut_scene_treelets(scene, n_target: int = 32) -> np.ndarray:
+    """(T, 6) world-space treelet AABBs covering the whole scene, T <=
+    n_target: per instance, its committed BLAS is greedily cut into
+    prim-proportional subtrees (largest-by-prim-count splits first), then
+    each subtree's object-space box is transformed to world space.
+
+    The sort-key table of streaming scenes (ops/sort.py): bounce and shadow
+    rays bin by the treelet their slab entry reaches first. Ordering only:
+    coverage affects locality, never hit results.
+
+    Emission order is [node, RIGHT subtree, LEFT subtree], so the right
+    child spans [i+1, left) and the left child inherits the parent's end (a
+    node's SKIP field is its on-miss jump target, not its span end)."""
+    import heapq
+
+    ifields = scene.blas_ifields.cpu().numpy()
+    bmin_n = scene.blas_bmin.cpu().numpy()
+    bmax_n = scene.blas_bmax.cpu().numpy()
+    roots = scene.inst_blas_root.cpu().numpy().tolist()
+    o2w = scene.inst_o2w.cpu().numpy().astype(np.float32)
+    nn = ifields.shape[0]
+    leaf_counts = np.where(ifields[:, 2] > 0, ifields[:, 2], 0)
+    csum = np.concatenate([[0], np.cumsum(leaf_counts)])
+    roots_all = sorted(int(r) for r in roots)
+
+    def prims(i: int, end: int) -> int:
+        return int(csum[end] - csum[i])
+
+    total = int(csum[-1])
+    out = []
+    for inst, root in enumerate(roots):
+        root = int(root)
+        later = [r for r in roots_all if r > root]
+        end0 = later[0] if later else nn
+        share = max(1, round(n_target * prims(root, end0) / max(1, total)))
+        heap = [(-prims(root, end0), root, end0)]
+        while len(heap) < share:
+            negp, i, end = heapq.heappop(heap)
+            if ifields[i, 2] > 0:
+                heapq.heappush(heap, (negp, i, end))
+                break
+            left = int(ifields[i, 0])
+            heapq.heappush(heap, (-prims(i + 1, left), i + 1, left))
+            heapq.heappush(heap, (-prims(left, end), left, end))
+        m = o2w[inst]  # (3, 4)
+        for _negp, i, _end in heap:
+            lo, hi = bmin_n[i], bmax_n[i]
+            # world box of a transformed AABB: |R| trick
+            c = m[:, 0:3] @ ((lo + hi) * 0.5) + m[:, 3]
+            e = np.abs(m[:, 0:3]) @ ((hi - lo) * 0.5)
+            out.append(np.concatenate([c - e, c + e]))
+    out = np.stack(out).astype(np.float32)
+    return out[:n_target] if out.shape[0] > n_target else out

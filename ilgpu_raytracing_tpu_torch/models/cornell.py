@@ -67,7 +67,7 @@ def build_cornell_scene(
     sphere_tess: tuple[int, int] = (16, 24),
     blas_leaf_size: int = 4,
     bvh_method: str = "median",
-    device="cpu",
+    device="cuda",
 ):
     """Cornell box (open front, +z toward the viewer) with two interior
     blocks and one tessellated sphere -- all triangles, one mesh instance.

@@ -189,7 +189,7 @@ class SceneData:
         return out
 
 
-def scene_from_numpy(tables: dict[str, Any], device="cpu") -> SceneData:
+def scene_from_numpy(tables: dict[str, Any], device="cuda") -> SceneData:
     """SceneData from numpy arrays named like the JAX SceneData fields
     (`has_alpha`, `blas_leaf_max`, `tlas_leaf_max` optional)."""
     kw = {}
@@ -400,7 +400,7 @@ class SceneBuilder:
 
     # ---- commit ----
 
-    def commit(self, device="cpu") -> SceneData:
+    def commit(self, device="cuda") -> SceneData:
         n_inst = len(self.instances)
         assert n_inst > 0, "empty scene"
 
@@ -492,7 +492,7 @@ class SceneBuilder:
 
 
 def build_default_scene(blas_leaf_size: int = 4, tlas_leaf_size: int = 2,
-                        single_instance: bool = False, device="cpu"):
+                        single_instance: bool = False, device="cuda"):
     """The reference default scene: 2 checker textures, 5 materials, 6
     spheres (ground r=1000, red, green, textured, mirror, glass ior=1.5),
     one instance per sphere or all in one (Scene.cs:83-142). Returns

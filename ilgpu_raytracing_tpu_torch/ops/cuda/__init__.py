@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import time
 
 import torch
 
@@ -42,10 +43,16 @@ def _nvcc() -> str:
     return path
 
 
+# headers under csrc/ included by the sources; they are part of every
+# library's build hash, so editing one rebuilds the libraries
+HEADERS = ("trace_common.cuh",)
+
+
 def load_kernel_library(name: str):
     """Build (at first use) and load csrc/<name>.cu. Returns (CDLL, seconds)."""
     return build_and_load(
-        name, [_nvcc()] + NVCC_FLAGS, [os.path.join(CSRC, name + ".cu")]
+        name, [_nvcc()] + NVCC_FLAGS, [os.path.join(CSRC, name + ".cu")],
+        tuple(os.path.join(CSRC, h) for h in HEADERS),
     )
 
 
@@ -64,7 +71,14 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 
 def build_all() -> float:
-    """Build every kernel library of the port; returns compile seconds."""
-    from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos, wide
+    """Build every kernel library of the port, one nvcc per source, all
+    started together; returns the wall seconds of the builds."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    return wide.library()[1] + sortpos.library()[1]
+    from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos, stream, wide
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for f in [pool.submit(m.library) for m in (wide, stream, sortpos)]:
+            f.result()
+    return time.monotonic() - t0

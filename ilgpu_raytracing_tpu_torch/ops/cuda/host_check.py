@@ -1,0 +1,190 @@
+"""Run the port's CUDA trace kernels (K1/K2, K4/K5) on the CPU.
+
+A rehearsal for machines without a card or nvcc: compiles
+`csrc/wide_trace.cu` and `csrc/stream_trace.cu` for the host with g++ (a
+stub `cuda_runtime.h`; each kernel launch becomes a loop over the grid;
+`-ffp-contract=off` in place of nvcc's `--fmad=false`), binds the results
+in place of the nvcc builds, and runs them through the wrappers' own launch
+path on CPU tensors. Scenes: the small terrain and the leaf-64 Cornell box
+(streaming tables, K4/K5), the leaf-8 Cornell box and the default
+six-instance sphere scene (wide tables, K1/K2); primary rays and one
+scattered bounce per hit. Each is held to the plain walk (hit masks and
+occlusion equal, |dt| <= 1e-3, prim agreement > 99.5%) and the boxes and
+primitives the counting variant tallies are printed. Exits 1 on a
+mismatch. It says nothing about speed, and nothing about what nvcc accepts.
+
+Run from the repository root:
+    python3 -m ilgpu_raytracing_tpu_torch.ops.cuda.host_check
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from ilgpu_raytracing_tpu_torch.ops import cuda as cu
+from ilgpu_raytracing_tpu_torch.utils.build import BUILD_DIR
+
+STUB = """#pragma once
+#include <algorithm>
+#include <cmath>
+#include <cstddef>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+struct float4 { float x, y, z, w; };
+struct Dim { unsigned x, y, z; };
+static Dim blockIdx, threadIdx, blockDim;
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+inline int cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return ""; }
+inline float4 __ldg(const float4* p) { return *p; }
+inline int atomicExch(int* p, int v) { int o = *p; *p = v; return o; }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  unsigned long long o = *p; *p += v; return o;
+}
+using std::min;
+"""
+# kernel<...><<<blocks, THREADS, 0, s>>>(args);  ->  a loop over the grid
+LAUNCH = re.compile(r"(trace_kernel<[^>]*>)<<<blocks, THREADS, 0, s>>>\((.*?)\);", re.S)
+LOOP = (r"for (unsigned b_ = 0; b_ < unsigned(blocks); ++b_) "
+        r"for (unsigned t_ = 0; t_ < unsigned(THREADS); ++t_) { blockIdx.x = b_; "
+        r"blockDim.x = THREADS; threadIdx.x = t_; \1(\2); }")
+
+
+def host_libraries() -> dict[str, ctypes.CDLL]:
+    """g++ builds of the trace sources, under _build/host/."""
+    out_dir = os.path.join(BUILD_DIR, "host")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "cuda_runtime.h"), "w") as f:
+        f.write(STUB)
+    for name in cu.HEADERS + ("wide_trace.cu", "stream_trace.cu"):
+        with open(os.path.join(cu.CSRC, name)) as f:
+            src = LAUNCH.sub(LOOP, f.read())
+        if "<<<" in src:
+            raise RuntimeError(f"{name}: a launch the host build cannot rewrite")
+        host_name = name[:-3] + ".cpp" if name.endswith(".cu") else name
+        with open(os.path.join(out_dir, host_name), "w") as f:
+            f.write(src)
+    libs = {}
+    for name in ("wide_trace", "stream_trace"):
+        so = os.path.join(out_dir, f"lib{name}.so")
+        subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+                        "-fPIC", "-I", out_dir, "-o", so,
+                        os.path.join(out_dir, name + ".cpp")], check=True)
+        libs[name] = ctypes.CDLL(so)
+    return libs
+
+
+def jittered_rays(cam, w: int, h: int, seed: int):
+    from ilgpu_raytracing_tpu_torch.ops import rays
+
+    rng = np.random.default_rng(seed)
+    u = (np.arange(w * h) % w + rng.random(w * h)) / w
+    v = (np.arange(w * h) // w + rng.random(w * h)) / h
+    o, d = rays.generate_rays(cam, torch.as_tensor(u, dtype=torch.float32),
+                              torch.as_tensor(v, dtype=torch.float32))
+    return o.contiguous(), d.contiguous()
+
+
+def bounce_rays(scene, hit, o, d, seed: int):
+    from ilgpu_raytracing_tpu_torch.ops import traverse
+
+    surf = traverse.shade_hits(scene, hit, o, d)
+    rnd = torch.as_tensor(np.random.default_rng(seed).normal(size=o.shape),
+                          dtype=torch.float32)
+    rnd = rnd / rnd.norm(dim=1, keepdim=True)
+    dirs = torch.where(((rnd * surf.normal).sum(1) < 0)[:, None], -rnd, rnd)
+    org = surf.pos + surf.normal * 0.0025
+    return org[hit.hit].contiguous(), dirs[hit.hit].contiguous()
+
+
+def check_walks(label, mod, ks, o, d) -> bool:
+    """Kernel (through `mod._launch`) vs plain walk on one ray set; prints
+    the comparison and the counting variant's tallies, returns the verdict."""
+    from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
+
+    n = o.shape[0]
+    tm = torch.full((n,), T_INF)
+    t_k, pp_k = mod._launch(ks, o, d, tm, any_hit=False)
+    t_p, pp_p = mod.trace_closest_plain(ks, o, d, tm)
+    hit_k, hit_p = pp_k >= 0, pp_p >= 0
+    both = hit_k & hit_p
+    dt = (t_k - t_p).abs()[both]
+    agree = float((pp_k == pp_p)[both].float().mean()) if bool(both.any()) else 1.0
+    ok = bool(torch.equal(hit_k, hit_p)) and not bool((dt > 1e-3).any()) and agree > 0.995
+    occ_diff = []
+    for t_max in (5.0, 1e29):
+        tt = torch.full((n,), t_max)
+        occ_diff.append(int((mod._launch(ks, o, d, tt, any_hit=True)[0]
+                             != mod.shadow_plain(ks, o, d, tt)).sum()))
+    ok = ok and not any(occ_diff)
+    work = torch.zeros((2,), dtype=torch.int64)
+    mod._launch(ks, o, d, tm, any_hit=False, work=work)
+    n_hit = max(1, int(hit_k.sum()))
+    print(f"{label}: {n} rays, {int(hit_k.sum())} hits, hit masks "
+          f"{'equal' if torch.equal(hit_k, hit_p) else 'DIFFER'}, max |dt| "
+          f"{float(dt.max()) if bool(both.any()) else 0.0:.3e}, prim agreement "
+          f"{agree:.5f}, occlusion differs on {occ_diff} (t_max 5, 1e29); "
+          f"per ray {int(work[0]) / n:.1f} boxes, {int(work[1]) / n:.1f} "
+          f"primitives ({int(work[1]) / n_hit:.1f} per hit) -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def primary_hits(mod, ks, o, d):
+    """Plain closest hits of the primary rays, decoded (the bounce origins)."""
+    from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
+
+    t, pp = mod.trace_closest_plain(ks, o, d, torch.full((o.shape[0],), T_INF))
+    decode = getattr(mod, "decode_stream_hits", None) or mod.decode_wide_hits
+    return decode(ks, o, d, t, pp)
+
+
+def main() -> int:
+    libs = host_libraries()
+    cu.load_kernel_library = lambda name: (libs[name], 0.0)
+    cu.stream_ptr = lambda t: None
+
+    from ilgpu_raytracing_tpu_torch.models import cornell, terrain
+    from ilgpu_raytracing_tpu_torch.models.camera import Camera
+    from ilgpu_raytracing_tpu_torch.models.scene import build_default_scene
+    from ilgpu_raytracing_tpu_torch.ops.cuda import stream, wide
+
+    cases = (
+        ("small terrain", stream,
+         terrain.build_terrain_scene(grid_x=64, grid_z=32, device="cpu")[1],
+         terrain.terrain_camera(96, 64)),
+        ("Cornell leaf 64", stream,
+         cornell.build_cornell_scene(tess=6, sphere_tess=(10, 14), blas_leaf_size=64,
+                                     bvh_method="sah", device="cpu")[1],
+         cornell.cornell_camera(96, 64)),
+        ("Cornell leaf 8", wide,
+         cornell.build_cornell_scene(tess=4, sphere_tess=(8, 12), blas_leaf_size=8,
+                                     bvh_method="sah", device="cpu")[1],
+         cornell.cornell_camera(96, 64)),
+        ("default 6-sphere", wide,
+         build_default_scene(single_instance=False, device="cpu")[1],
+         Camera.create(96, 64)),
+    )
+    ok = True
+    for label, mod, scene, cam in cases:
+        ks = stream.prepare_stream(scene) if mod is stream else wide.prepare_scene(scene)
+        o, d = jittered_rays(cam, 96, 64, 1)
+        ok &= check_walks(f"{label} primary", mod, ks, o, d)
+        hit = primary_hits(mod, ks, o, d)
+        bo, bd = bounce_rays(scene, hit, o, d, 2)
+        ok &= check_walks(f"{label} bounce", mod, ks, bo, bd)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -46,7 +46,6 @@ MAX_FRONT = 8  # frontier width the TPU stack bound is simulated at
 _EMPTY = -1  # child encodings: >=0 inner wide id; -1 empty; <=-2 leaf
 _Q_MASK_SHIFT = 24
 PP_PRIM_BITS = 20
-_PP_PRIM_MASK = (1 << PP_PRIM_BITS) - 1
 MAX_TRIS = 150_000
 
 LAUNCHES = {"wide_closest": 0, "wide_shadow": 0}
@@ -70,8 +69,10 @@ class PackedScene:
     needs_bary: bool = True
 
 
-def supports_scene(scene: SceneData, max_tris: int = MAX_TRIS) -> bool:
-    return scene.tri_v0.shape[0] <= max_tris
+def supports_scene(scene: SceneData, max_tris: int | None = None) -> bool:
+    """True when the wide kernels take the scene (<= max_tris, default
+    MAX_TRIS, triangles)."""
+    return scene.tri_v0.shape[0] <= (MAX_TRIS if max_tris is None else max_tris)
 
 
 def _scene_needs_bary(scene: SceneData) -> bool:
@@ -427,81 +428,107 @@ def library():
         common = [cu.VP, cu.VP, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.VP, cu.VP,
                   cu.VP, cu.VP, cu.CI, cu.CI, cu.CI]
         lib.wide_trace_closest.restype = cu.CI
-        lib.wide_trace_closest.argtypes = common + [cu.VP, cu.VP, cu.VP, cu.VP]
+        lib.wide_trace_closest.argtypes = common + [cu.VP] * 5
         lib.wide_trace_shadow.restype = cu.CI
-        lib.wide_trace_shadow.argtypes = common + [cu.VP, cu.VP, cu.VP]
+        lib.wide_trace_shadow.argtypes = common + [cu.VP] * 4
         lib.wide_max_stack.restype = cu.CI
         _state["lib"] = lib
         return lib, seconds
     return _state["lib"], 0.0
 
 
-def _check_rays(ws: WideScene, o, d, t_max):
+def _check_rays(device, o, d, t_max, label: str = "wide trace"):
+    """Rays must be contiguous float32 (N,3)/(N,3)/(N,) on the scene's
+    device (`device`), which is the CPU or a CUDA card."""
     n = o.shape[0]
     for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("t_max", t_max, (n,))):
         if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(
-                f"wide trace: {name} must be contiguous float32 {shape}, got "
+                f"{label}: {name} must be contiguous float32 {shape}, got "
                 f"{x.dtype} {tuple(x.shape)}"
             )
-        if x.device != ws.wide_child.device:
-            raise ValueError(
-                f"wide trace: {name} on {x.device}, scene on {ws.wide_child.device}"
-            )
+        if x.device != device:
+            raise ValueError(f"{label}: {name} on {x.device}, scene on {device}")
     if o.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"wide trace: unsupported device {o.device}")
+        raise ValueError(f"{label}: unsupported device {o.device}")
 
 
-def _launch(ws: WideScene, o, d, t_max, any_hit: bool):
+def launch_walk(lib, prefix: str, tables: list, thread_stack: int, o, d, t_max,
+                any_hit: bool, work=None):
+    """Launch `<prefix>_trace_closest` or `<prefix>_trace_shadow` of a trace
+    library (csrc/trace_common.cuh) on the rays; `tables` are the scene
+    arguments between the rays and the stack bound. With `work` (2 zeroed
+    int64 on the rays' device) the counting variant runs and adds the boxes
+    and primitives it tested there. Raises on a launch error or a stack
+    overflow. Returns (t, pp) or (occ,)."""
+    n = o.shape[0]
+    dev = o.device
+    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
+    args = [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, *tables, thread_stack]
+    tail = [overflow.data_ptr(), None if work is None else work.data_ptr(),
+            cu.stream_ptr(o)]
+    if any_hit:
+        occ = torch.empty((n,), dtype=torch.bool, device=dev)
+        err = getattr(lib, prefix + "_trace_shadow")(*args, occ.data_ptr(), *tail)
+        out = (occ,)
+    else:
+        t = torch.empty((n,), dtype=torch.float32, device=dev)
+        pp = torch.empty((n,), dtype=torch.int32, device=dev)
+        err = getattr(lib, prefix + "_trace_closest")(
+            *args, t.data_ptr(), pp.data_ptr(), *tail)
+        out = (t, pp)
+    cu.check(lib, prefix, err)
+    if int(overflow.item()) != 0:
+        raise RuntimeError(
+            f"{prefix} trace: per-thread stack overflow (bound {thread_stack})"
+        )
+    return out
+
+
+def _launch(ws: WideScene, o, d, t_max, any_hit: bool, work=None):
     lib, _ = library()
     if ws.thread_stack > lib.wide_max_stack():
         raise ValueError(
             f"wide BVH needs a {ws.thread_stack}-entry per-thread stack; the "
             f"kernel holds {lib.wide_max_stack()}"
         )
-    n = o.shape[0]
-    dev = o.device
-    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
-    args = [
-        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n,
+    if ws.tri_rows.data_ptr() % 16 or ws.sph_rows.data_ptr() % 16:
+        raise ValueError("wide trace: leaf rows must be 16-byte aligned")
+    tables = [
         ws.wide_bounds.data_ptr(), ws.wide_child.data_ptr(),
         ws.wide_perm.data_ptr(), ws.tri_rows.data_ptr(), ws.sph_rows.data_ptr(),
         ws.inst_i.data_ptr(), ws.inst_f.data_ptr(), ws.inst_i.shape[0],
-        ws.leaf_width, ws.thread_stack,
+        ws.leaf_width,
     ]
-    if any_hit:
-        occ = torch.empty((n,), dtype=torch.bool, device=dev)
-        err = lib.wide_trace_shadow(
-            *args, occ.data_ptr(), overflow.data_ptr(), cu.stream_ptr(o)
-        )
-        out = (occ,)
-        LAUNCHES["wide_shadow"] += 1
-    else:
-        t = torch.empty((n,), dtype=torch.float32, device=dev)
-        pp = torch.empty((n,), dtype=torch.int32, device=dev)
-        err = lib.wide_trace_closest(
-            *args, t.data_ptr(), pp.data_ptr(), overflow.data_ptr(),
-            cu.stream_ptr(o),
-        )
-        out = (t, pp)
-        LAUNCHES["wide_closest"] += 1
-    cu.check(lib, "wide", err)
-    if int(overflow.item()) != 0:
-        raise RuntimeError(
-            f"wide trace: per-thread stack overflow (bound {ws.thread_stack})"
-        )
-    return out
+    if work is None:
+        LAUNCHES["wide_shadow" if any_hit else "wide_closest"] += 1
+    return launch_walk(lib, "wide", tables, ws.thread_stack, o, d, t_max,
+                       any_hit, work)
+
+
+def count_work(ws: WideScene, o, d, t_max, any_hit: bool) -> tuple[int, int]:
+    """(boxes, primitives) that K1 (K2 with `any_hit`) tests on these CUDA
+    rays, from the kernel's counting variant; not a launch of the frame."""
+    work = torch.zeros((2,), dtype=torch.int64, device=o.device)
+    _launch(ws, o, d, t_max, any_hit, work)
+    return int(work[0]), int(work[1])
+
+
+def plain_closest_packed(scene: SceneData, o, d, t_max, prim_bits: int):
+    """The skip-index walk of ops/traverse.py on `scene`, packed as the
+    kernels pack it: pp = prim | (inst*4+kind) << prim_bits, miss = -1. A hit
+    at or beyond t_max is a miss (the closest hit overall lies below t_max
+    exactly when some hit does)."""
+    hit = traverse.trace_closest(scene, o, d, active=t_max > 0.0)
+    ok = (hit.prim >= 0) & (hit.t < t_max)
+    pp = (hit.prim | ((hit.inst * 4 + hit.kind) << prim_bits)).to(torch.int32)
+    t = torch.where(ok, hit.t, torch.clamp(t_max, max=T_INF))
+    return t, torch.where(ok, pp, torch.full_like(pp, -1))
 
 
 def trace_closest_plain(ws: WideScene, o, d, t_max):
-    """Plain K1: the skip-index walk of ops/traverse.py on ws.scene, packed
-    as the kernel packs it. A hit at or beyond t_max is a miss (the closest
-    hit overall lies below t_max exactly when some hit does)."""
-    hit = traverse.trace_closest(ws.scene, o, d, active=t_max > 0.0)
-    ok = (hit.prim >= 0) & (hit.t < t_max)
-    pp = (hit.prim | ((hit.inst * 4 + hit.kind) << PP_PRIM_BITS)).to(torch.int32)
-    t = torch.where(ok, hit.t, torch.clamp(t_max, max=T_INF))
-    return t, torch.where(ok, pp, torch.full_like(pp, -1))
+    """Plain K1: the skip-index walk on ws.scene, 20-bit prim record."""
+    return plain_closest_packed(ws.scene, o, d, t_max, PP_PRIM_BITS)
 
 
 def shadow_plain(ws: WideScene, o, d, t_max):
@@ -526,7 +553,7 @@ def trace_closest_wide_packed(ws: WideScene, o, d, active=None, t_max=None):
     """K1: closest hit as the packed record (t, pp), pp = prim |
     (inst*4+kind) << 20, miss = -1; t_max 0 marks an inactive lane."""
     t_max = _lane_t_max(o, t_max, active)
-    _check_rays(ws, o, d, t_max)
+    _check_rays(ws.wide_child.device, o, d, t_max)
     if o.device.type == "cpu":
         return trace_closest_plain(ws, o, d, t_max)
     return _launch(ws, o, d, t_max, any_hit=False)
@@ -535,19 +562,20 @@ def trace_closest_wide_packed(ws: WideScene, o, d, active=None, t_max=None):
 def shadow_occlusion_wide(ws: WideScene, o, d, t_max_world, active=None):
     """K2: any-hit occlusion within (T_EPS, t_max_world); bool (N,)."""
     t_max = _lane_t_max(o, t_max_world, active)
-    _check_rays(ws, o, d, t_max)
+    _check_rays(ws.wide_child.device, o, d, t_max)
     if o.device.type == "cpu":
         return shadow_plain(ws, o, d, t_max)
     return _launch(ws, o, d, t_max, any_hit=True)[0]
 
 
-def _decode_pp(tri_v0e, inst_w2o, o, d, t, pp, need_bary: bool = True):
+def _decode_pp(tri_v0e, inst_w2o, o, d, t, pp, need_bary: bool = True,
+               prim_bits: int = PP_PRIM_BITS):
     """Packed record -> (t, prim, inst_enc, bu, bv); barycentrics recomputed
     against the winning triangle in object space (zeros when the scene has
     no consumer for them)."""
     miss = pp < 0
-    prim = torch.where(miss, -1, pp & _PP_PRIM_MASK).to(torch.int32)
-    inst = torch.where(miss, -1, pp >> PP_PRIM_BITS).to(torch.int32)
+    prim = torch.where(miss, -1, pp & ((1 << prim_bits) - 1)).to(torch.int32)
+    inst = torch.where(miss, -1, pp >> prim_bits).to(torch.int32)
     if not need_bary:
         zero = torch.zeros_like(t)
         return t, prim, inst, zero, zero

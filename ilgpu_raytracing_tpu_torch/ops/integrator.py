@@ -9,10 +9,12 @@ updates, Russian roulette from `rr_start_depth`, visibility-ray RR, the
 once-per-frame bounce-0 sun occlusion trace, an any-hit sky test at the
 final bounce, and a per-sample NaN scrub and fold.
 
-With a WideScene the traces go through the wide kernels (ops/cuda/wide.py)
-and the counting sort (ops/cuda/sortpos.py), which run their CUDA kernels
-on CUDA tensors and their plain versions on CPU tensors; without one they
-go to the plain tracer of ops/traverse.py directly.
+With a kernel scene the traces go through its kernels -- the wide K1/K2
+(ops/cuda/wide.py) for a WideScene, the streaming K4/K5
+(ops/cuda/stream.py) for a StreamScene -- and the counting sort K3
+(ops/cuda/sortpos.py); each runs its CUDA kernel on CUDA tensors and its
+plain version on CPU tensors. Without one the traces go to the plain
+tracer of ops/traverse.py directly.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ilgpu_raytracing_tpu_torch.ops import restir as restir_mod
 from ilgpu_raytracing_tpu_torch.ops import sky as sky_ops
 from ilgpu_raytracing_tpu_torch.ops import sort as sort_mod
 from ilgpu_raytracing_tpu_torch.ops import traverse
+from ilgpu_raytracing_tpu_torch.ops.cuda import stream as stream_mod
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide as wide_mod
 from ilgpu_raytracing_tpu_torch.ops.sampling import sample_hemisphere_cosine
 from ilgpu_raytracing_tpu_torch.utils import rng as rng_mod
@@ -82,36 +85,51 @@ def _refuse_unported(scene: SceneData, n_pixels: int, chunk_target: int) -> None
         )
 
 
-def _trace(scene, wscene, o, d, active=None, sort=False, morton_bounds=None):
-    """Closest-hit dispatch: wide kernel K1 (sorted around K3 for bounce
-    batches) when a WideScene is given, the plain tracer otherwise."""
-    if wscene is None:
+def _kernels(kscene):
+    """(packed closest, decode, any-hit) wrappers of a kernel scene: the
+    streaming kernels K4/K5 for a StreamScene, the wide K1/K2 otherwise."""
+    if isinstance(kscene, stream_mod.StreamScene):
+        return (stream_mod.trace_closest_stream_packed,
+                stream_mod.decode_stream_hits, stream_mod.shadow_occlusion_stream)
+    return (wide_mod.trace_closest_wide_packed, wide_mod.decode_wide_hits,
+            wide_mod.shadow_occlusion_wide)
+
+
+def _trace(scene, kscene, o, d, active=None, sort=False, morton_bounds=None,
+           treelet_bounds=None):
+    """Closest-hit dispatch: the kernel scene's closest-hit kernel (sorted
+    around K3 for bounce batches) when one is given, the plain tracer
+    otherwise."""
+    if kscene is None:
         return traverse.trace_closest(scene, o, d, active=active)
+    packed, decode, _ = _kernels(kscene)
     if sort and active is not None:
         return sort_mod.sorted_closest_packed(
-            lambda oo, dd, act: wide_mod.trace_closest_wide_packed(
-                wscene, oo, dd, active=act),
-            lambda t, pp: wide_mod.decode_wide_hits(wscene, o, d, t, pp),
-            o, d, active, morton_bounds,
+            lambda oo, dd, act: packed(kscene, oo, dd, active=act),
+            lambda t, pp: decode(kscene, o, d, t, pp),
+            o, d, active, morton_bounds, treelet_bounds,
         )
-    return wide_mod.trace_closest_wide(wscene, o, d, active=active)
+    t, pp = packed(kscene, o, d, active=active)
+    return decode(kscene, o, d, t, pp)
 
 
-def _shadow(scene, wscene, o, d, t_max: float, active=None, sort=False,
-            morton_bounds=None):
-    """Any-hit dispatch (K2, sorted around K3 for bounce batches). The
+def _shadow(scene, kscene, o, d, t_max: float, active=None, sort=False,
+            morton_bounds=None, treelet_bounds=None):
+    """Any-hit dispatch (K2 or K5, sorted around K3 for bounce batches). The
     sorted path needs a scalar t_max (a per-lane limit would have to ride
     the permutation)."""
-    if wscene is None:
+    if kscene is None:
         return traverse.shadow_occlusion(scene, o, d, t_max, active=active)
+    _, _, any_hit = _kernels(kscene)
 
     def run(oo, dd, act):
-        return wide_mod.shadow_occlusion_wide(wscene, oo, dd, t_max, active=act)
+        return any_hit(kscene, oo, dd, t_max, active=act)
 
     if sort and active is not None:
         if not isinstance(t_max, (int, float)):
             raise ValueError("sorted shadow path requires a scalar t_max")
-        return sort_mod.sorted_shadow(run, o, d, active, morton_bounds)
+        return sort_mod.sorted_shadow(run, o, d, active, morton_bounds,
+                                      treelet_bounds)
     return run(o, d, active)
 
 
@@ -165,6 +183,11 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
         bmin = torch.amin(scene.inst_bmin, dim=0)
         bmax = torch.amax(scene.inst_bmax, dim=0)
         morton_bounds = (bmin, 1.0 / torch.clamp(bmax - bmin, min=1e-6))
+    # streaming scenes: destination-treelet key instead of origin Morton
+    treelet_bounds = None
+    if (cfg.sort_bounce_rays and cfg.sort_stream_treelet_key
+            and isinstance(wscene, stream_mod.StreamScene)):
+        treelet_bounds = wscene.sortkey_bounds
 
     def tile(x):
         return x.repeat((spp,) + (1,) * (x.dim() - 1))
@@ -272,6 +295,7 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
         occluded = _shadow(
             scene, wscene, shadow_o, sel["wi"], 1e29, active=q_act,
             sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+            treelet_bounds=treelet_bounds,
         )
         li = li + torch.where(
             (q_act & (~occluded))[..., None], contrib_w, zeros3(contrib_w)
@@ -326,6 +350,7 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
             occluded = _shadow(
                 scene, wscene, ray_o, new_dir, 1e29, active=sky_act,
                 sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+                treelet_bounds=treelet_bounds,
             )
             missed = sky_act & (~occluded)
             li = li + torch.where(missed[..., None], sky_w, zeros3(sky_w))
@@ -334,6 +359,7 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
             hit = _trace(
                 scene, wscene, ray_o, new_dir, active=trace_active,
                 sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+                treelet_bounds=treelet_bounds,
             )
             surf = traverse.shade_hits(scene, hit, ray_o, new_dir)
             missed = trace_active & (~hit.hit)

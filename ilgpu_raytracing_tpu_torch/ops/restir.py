@@ -45,7 +45,7 @@ class Reservoirs:
     W: torch.Tensor  # (N,) unbiased contribution weight wSum/(Z*s_hat)
 
     @staticmethod
-    def empty(n: int, device="cpu") -> "Reservoirs":
+    def empty(n: int, device="cuda") -> "Reservoirs":
         z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
         zi = lambda: torch.zeros((n,), dtype=torch.int32, device=device)
         return Reservoirs(L=z(n, 3), wi=z(n, 3), pdf=z(n), w=z(n), w_sum=z(n),

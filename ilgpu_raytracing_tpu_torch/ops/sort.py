@@ -1,11 +1,12 @@
-"""Bounce-ray reordering for traversal coherence (port of ops/sort.py;
-the treelet key of streaming scenes waits with the streaming kernels).
+"""Bounce-ray reordering for traversal coherence (port of ops/sort.py).
 
 Rays are ordered by a stable counting sort over a small key -- (alive,
 direction octant, 4-bit origin Morton code), 129 bins with every dead lane
 in the tail bin -- so rays that walk the same part of the tree sit next to
-each other. Per-lane trace results never depend on the order; the sorted
-results are restored to the original lane order afterwards.
+each other. Streaming scenes take the destination-treelet key instead
+(octant * T + the treelet box the ray enters first, 8T+2 bins). Per-lane
+trace results never depend on the order; the sorted results are restored
+to the original lane order afterwards.
 """
 
 from __future__ import annotations
@@ -53,12 +54,41 @@ def octant_alive_key(d: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     return torch.where(active, _octant3(d), 8)
 
 
-def _ray_perm(o, d, active, morton_bounds):
-    """(perm, pos) ordering rays by (alive, octant[, origin morton]).
+def _slab_entry(bounds, o, d):
+    """(N, T) slab entry t of each ray into each world-space AABB; +inf on
+    a miss. Sort-key arithmetic only: the trace results never depend on it."""
+    inv = 1.0 / torch.where(d != 0.0, d, torch.full_like(d, 1e-8))
+    lo = torch.full((o.shape[0], bounds.shape[0]), 1e-4, dtype=torch.float32,
+                    device=o.device)
+    hi = torch.full_like(lo, float("inf"))
+    for ax in range(3):
+        t1 = (bounds[None, :, ax] - o[:, None, ax]) * inv[:, None, ax]
+        t2 = (bounds[None, :, 3 + ax] - o[:, None, ax]) * inv[:, None, ax]
+        lo = torch.maximum(lo, torch.minimum(t1, t2))
+        hi = torch.minimum(hi, torch.maximum(t1, t2))
+    return torch.where(hi >= lo, lo, torch.full_like(lo, float("inf")))
 
-    With `morton_bounds` = (bmin, inv_ext) the key is octant*16 + morton4
-    for live lanes and 128 for every dead lane (129 bins); without it, the
-    16-bin octant/alive key."""
+
+def _ray_perm(o, d, active, morton_bounds, treelet_bounds=None):
+    """(perm, pos) ordering rays by (alive, octant[, origin morton |
+    destination treelet]).
+
+    With `treelet_bounds` (a (T,6) world-space box table,
+    models/bvh.cut_scene_treelets) the key is octant*T + the treelet whose
+    slab entry comes first; live rays that miss every box go to bin 8T,
+    dead lanes to bin 8T+1. Otherwise, with `morton_bounds` = (bmin,
+    inv_ext) the key is octant*16 + morton4 for live lanes and 128 for
+    every dead lane (129 bins); without either, the 16-bin octant/alive
+    key."""
+    if treelet_bounds is not None:
+        t_lo = _slab_entry(treelet_bounds, o, d)
+        tid = torch.argmin(t_lo, dim=1).to(torch.int32)
+        covered = torch.isfinite(torch.amin(t_lo, dim=1))
+        groups = 8 * treelet_bounds.shape[0]
+        key = torch.where(covered, _octant3(d) * treelet_bounds.shape[0] + tid,
+                          groups)
+        key = torch.where(active, key, groups + 1)
+        return _perm_from_key(key, groups + 2)
     if morton_bounds is None:
         return _perm_from_key(octant_alive_key(d, active))
     bmin, inv_ext = morton_bounds
@@ -66,29 +96,31 @@ def _ray_perm(o, d, active, morton_bounds):
     return _perm_from_key(key, 129)
 
 
-def _sorted_rays(o, d, active, morton_bounds):
+def _sorted_rays(o, d, active, morton_bounds, treelet_bounds=None):
     """(perm, pos, sorted_active). Live lanes sort before every dead one,
     so the sorted active mask is iota < n_alive."""
-    perm, pos = _ray_perm(o, d, active, morton_bounds)
+    perm, pos = _ray_perm(o, d, active, morton_bounds, treelet_bounds)
     n_alive = torch.sum(active.to(torch.int32))
     act_s = torch.arange(o.shape[0], dtype=torch.int32, device=o.device) < n_alive
     return perm, pos, act_s
 
 
-def sorted_closest_packed(trace_fn, decode_fn, o, d, active, morton_bounds=None):
+def sorted_closest_packed(trace_fn, decode_fn, o, d, active, morton_bounds=None,
+                          treelet_bounds=None):
     """trace_fn(o, d, active) -> packed (t, pp) on sorted rays; the two
     fields are restored to original lane order and decode_fn(t, pp) runs
     there (against the caller's original-order o/d)."""
-    perm, pos, act_s = _sorted_rays(o, d, active, morton_bounds)
+    perm, pos, act_s = _sorted_rays(o, d, active, morton_bounds, treelet_bounds)
     pl = perm.long()
     t, pp = trace_fn(o[pl], d[pl], act_s)
     pos_l = pos.long()
     return decode_fn(t[pos_l], pp[pos_l])
 
 
-def sorted_shadow(shadow_fn, o, d, active, morton_bounds=None):
+def sorted_shadow(shadow_fn, o, d, active, morton_bounds=None,
+                  treelet_bounds=None):
     """shadow_fn(o, d, active) -> (N,) bool on sorted rays, restored."""
-    perm, pos, act_s = _sorted_rays(o, d, active, morton_bounds)
+    perm, pos, act_s = _sorted_rays(o, d, active, morton_bounds, treelet_bounds)
     pl = perm.long()
     occ = shadow_fn(o[pl], d[pl], act_s)
     return occ[pos.long()]

@@ -28,7 +28,7 @@ class FrameState:
     accum_count: int
 
     @staticmethod
-    def create(low_n: int, out_n: int, device="cpu") -> "FrameState":
+    def create(low_n: int, out_n: int, device="cuda") -> "FrameState":
         return FrameState(
             res_prev=Reservoirs.empty(low_n, device),
             res_cur=Reservoirs.empty(low_n, device),
@@ -58,7 +58,7 @@ class FrameState:
         np.savez(path, **flat)
 
     @staticmethod
-    def load(path: str, device="cpu") -> "FrameState":
+    def load(path: str, device="cuda") -> "FrameState":
         z = np.load(path)
         t = lambda a, dt=None: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
 

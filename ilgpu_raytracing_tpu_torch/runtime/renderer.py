@@ -5,11 +5,13 @@ Per frame: primary visibility -> path trace with ReSTIR -> tone map + pack
 sun animation, reservoir ping-pong, the noise key, HUD timing and
 presentation (device -> host -> PNG).
 
-The Renderer runs on the device it is given and nowhere else. On CUDA it
-traces with the hand-written kernels (K1/K2 wide walks, K3 counting sort)
-and refuses what they do not cover; on the CPU the same wrappers run their
-plain versions. It never moves work to another device or swaps a kernel
-for its plain version on its own.
+The Renderer runs on the device it is given -- the card unless the caller
+asks for the CPU -- and nowhere else. On CUDA it traces with the
+hand-written kernels (K1/K2 wide walks up to 150k triangles, K4/K5
+streaming walks up to 4M, K3 counting sort) and refuses what they do not
+cover; on the CPU the same wrappers run their plain versions. It never
+moves work to another device or swaps a kernel for its plain version on
+its own.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ilgpu_raytracing_tpu_torch.config import RenderConfig
 from ilgpu_raytracing_tpu_torch.models.camera import Camera
 from ilgpu_raytracing_tpu_torch.models.scene import SceneData, build_default_scene
 from ilgpu_raytracing_tpu_torch.ops import integrator, sky, taa, tonemap, upsample
+from ilgpu_raytracing_tpu_torch.ops.cuda import stream as stream_mod
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide as wide_mod
 from ilgpu_raytracing_tpu_torch.runtime.framestate import FrameState
 from ilgpu_raytracing_tpu_torch.runtime.hud import FrameTimingHud
@@ -80,7 +83,7 @@ class Renderer:
     def __init__(self, out_w: int = 1280, out_h: int = 720,
                  cfg: RenderConfig | None = None, scene: SceneData | None = None,
                  camera: Camera | None = None, tonemap_name: str = "clamp",
-                 reference_pose: bool = False, mesh=None, device="cpu"):
+                 reference_pose: bool = False, mesh=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device rendering: ROADMAP Queue 1, multi-device "
@@ -89,11 +92,16 @@ class Renderer:
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"Renderer: unsupported device {self.device}")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Renderer: no CUDA device; pass device='cpu' to render with "
+                "the plain PyTorch versions of the kernels"
+            )
         self.cfg = cfg or RenderConfig()
         if scene is None:
             _, scene = build_default_scene(
                 self.cfg.blas_leaf_size, self.cfg.tlas_leaf_size,
-                single_instance=True,
+                single_instance=True, device=self.device,
             )
         self.wscene = None
         self.set_scene(scene)
@@ -119,6 +127,9 @@ class Renderer:
     # ---- scene ----
 
     def _prepare_wscene(self, scene: SceneData) -> None:
+        """Kernel tables of the scene: a WideScene up to wide.MAX_TRIS
+        triangles, a StreamScene up to stream.MAX_TRIS; above that the
+        plain walk on the CPU, and a refusal on CUDA."""
         on_cuda = self.device.type == "cuda"
         if not self.cfg.use_pallas_trace:
             if on_cuda:
@@ -129,16 +140,20 @@ class Renderer:
                 )
             self.wscene = None
             return
-        if not wide_mod.supports_scene(scene):
-            if on_cuda:
-                raise NotImplementedError(
-                    f"scene of {scene.n_tris} triangles exceeds the wide "
-                    f"kernels' {wide_mod.MAX_TRIS}: ROADMAP Queue 2, K4/K5 "
-                    f"streaming kernels"
-                )
+        if wide_mod.supports_scene(scene):
+            self.wscene = wide_mod.prepare_scene(scene)
+        elif stream_mod.supports_scene(scene):
+            # large scenes: the streaming kernels (BASELINE config 5)
+            self.wscene = stream_mod.prepare_stream(scene)
+        elif on_cuda:
+            raise RuntimeError(
+                f"scene ({scene.n_tris} tris) exceeds every kernel's limit "
+                f"(stream kernel caps at 4M triangles); the plain PyTorch "
+                f"walk is not used on the card. Split the scene or reduce "
+                f"triangle count."
+            )
+        else:
             self.wscene = None
-            return
-        self.wscene = wide_mod.prepare_scene(scene)
 
     def set_scene(self, scene: SceneData) -> None:
         """Swap the committed scene (moved to the renderer's device) and

@@ -22,19 +22,25 @@ REPO_DIR = os.path.dirname(PKG_DIR)
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 _lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
-def build_and_load(name: str, cmd: list[str], sources: list[str]):
+def build_and_load(name: str, cmd: list[str], sources: list[str],
+                   headers: tuple[str, ...] = ()):
     """Compile `sources` with `cmd + [-o out] + sources` unless a build with
-    the same hash exists, then load it. Returns (CDLL, build_seconds), with
-    0.0 seconds when nothing was compiled. Raises on a failed build."""
+    the same hash (of the command, the sources and the `headers` they
+    include) exists, then load it. Returns (CDLL, build_seconds), with 0.0
+    seconds when nothing was compiled. Raises on a failed build."""
     h = hashlib.sha256(" ".join(cmd).encode())
-    for src in sources:
+    for src in list(sources) + list(headers):
         with open(src, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
     with _lock:
+        out_lock = _locks.setdefault(out, threading.Lock())
+    # one lock per library: different libraries build concurrently
+    with out_lock:
         if out in _loaded:
             return _loaded[out], 0.0
         seconds = 0.0

@@ -273,6 +273,8 @@ def test_port_imports_no_jax():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'ilgpu_raytracing_tpu' or k.startswith('ilgpu_raytracing_tpu.')]\n"
         "assert not bad, bad\n"
+        "for m in ('models.terrain', 'ops.cuda.stream', 'ops.cuda.wide', 'ops.sort'):\n"
+        "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "print('ok', len([k for k in sys.modules if k.startswith(p.__name__)]))\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -283,4 +285,4 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[1]) >= 25
+    assert int(out.stdout.split()[1]) >= 27

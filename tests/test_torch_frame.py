@@ -34,6 +34,7 @@ from ilgpu_raytracing_tpu_torch.config import PARITY_KNOBS, RenderConfig
 from ilgpu_raytracing_tpu_torch.models.cornell import cornell_camera as tcam
 from ilgpu_raytracing_tpu_torch.models.scene import _FIELDS, scene_from_numpy
 from ilgpu_raytracing_tpu_torch.ops import integrator as tint
+from ilgpu_raytracing_tpu_torch.ops import layout
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide as twide
 from ilgpu_raytracing_tpu_torch.ops.restir import Reservoirs as TRes
 from ilgpu_raytracing_tpu_torch.runtime import renderer as trenderer
@@ -61,7 +62,7 @@ def scenes():
     tables = {k: np.asarray(getattr(js, k)) for k in _FIELDS}
     tables.update(has_alpha=js.has_alpha, blas_leaf_max=js.blas_leaf_max,
                   tlas_leaf_max=js.tlas_leaf_max)
-    ts = scene_from_numpy(tables)
+    ts = scene_from_numpy(tables, "cpu")
     return js, ts, twide.prepare_scene(ts)
 
 
@@ -82,14 +83,14 @@ def test_primary_gbuffer(scenes):
 
 
 def _frames(scenes):
-    """2 frames through both integrators; returns per-frame colours and the
-    final reservoirs of each."""
+    """2 frames through both integrators; returns per-frame colours, the
+    final reservoirs of each and the last frame's G-buffers."""
     js, ts, ws = scenes
     jcfg = JConfig(spp=2, max_depth=3, **PARITY_KNOBS)
     tcfg = RenderConfig(spp=2, max_depth=3, **PARITY_KNOBS)
     sun = jsky.sun_direction(jcfg.sun_azimuth, jcfg.sun_elevation)
     n = W * H
-    ja, jb, ta, tb = JRes.empty(n), JRes.empty(n), TRes.empty(n), TRes.empty(n)
+    ja, jb, ta, tb = JRes.empty(n), JRes.empty(n), TRes.empty(n, "cpu"), TRes.empty(n, "cpu")
     out = []
     for f in range(2):
         jgb = jint.primary_visibility(js, jcam(W, H), W, H)
@@ -105,19 +106,54 @@ def _frames(scenes):
         else:
             ja, ta = jc, tc
         out.append((np.asarray(jcol), tcol.numpy(), float(jeff), float(teff)))
-    return out, (jc, tc)
+    return out, (jc, tc), (jgb, tgb)
+
+
+# ReSTIR spatial reuse imports prev-frame reservoirs from up to 2 pixels
+# away on each axis (ops/restir.py: 8 slots, radius 1-2), and temporal reuse
+# from the reprojected pixel, which is the pixel itself under this static
+# camera: after two frames a pixel's reservoir depends on its own G-buffer
+# and on the 5x5 neighbourhood's.
+_REUSE_RADIUS = 2
+
+
+def _reuse_clean_pixels(jgb, tgb):
+    """(N,) bool in position order: the pixel and every pixel of its reuse
+    neighbourhood have the same `hit` and `obj_id` in both G-buffers."""
+    bad = np.zeros(W * H, bool)
+    for f in ("hit", "obj_id"):
+        bad |= np.asarray(getattr(jgb, f)) != getattr(tgb, f).numpy()
+    img = layout.to_image(torch.as_tensor(bad), W, H).numpy()
+    r = _REUSE_RADIUS
+    pad = np.pad(img, r)
+    grown = np.zeros_like(img)
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            grown |= pad[r + dy:r + dy + H, r + dx:r + dx + W]
+    return ~layout.from_image(torch.as_tensor(grown)).numpy()
 
 
 def test_path_trace_two_frames_golden_bar(scenes):
-    frames, (jres, tres) = _frames(scenes)
+    frames, (jres, tres), (jgb, tgb) = _frames(scenes)
     for jcol, tcol, jeff, teff in frames:
         assert np.isfinite(tcol).all()
         _golden_bar(tcol, jcol)
         assert abs(jeff - teff) <= 0.01 * jeff
     # the port also meets the committed golden image directly
     _golden_bar(frames[-1][1], np.load(_GOLDEN))
-    m_same = np.asarray(jres.m) == tres.m.numpy()
-    assert m_same.mean() > 0.98
+    # Reservoir counts m: a pixel whose G-buffer differs from JAX's (the
+    # FMA-contraction edge flips of the module docstring, a host-dependent
+    # handful) takes other candidates, and reuse carries that to every
+    # pixel that imports from it. So m is compared where the pixel and its
+    # whole reuse neighbourhood agree in hit and obj_id; there the two
+    # integrators draw the same candidates from the same noise.
+    clean = _reuse_clean_pixels(jgb, tgb)
+    excluded = 1.0 - clean.mean()
+    m_same = np.asarray(jres.m)[clean] == tres.m.numpy()[clean]
+    print(f"reservoir m equal on {m_same.mean():.5f} of {clean.sum()} of "
+          f"{W * H} pixels ({excluded:.2%} excluded by G-buffer disagreement)")
+    assert excluded < 0.2
+    assert m_same.mean() >= 0.99
 
 
 def _render_both(scenes, frames, jstate=None, tstate=None, first=0):
@@ -128,7 +164,7 @@ def _render_both(scenes, frames, jstate=None, tstate=None, first=0):
     assert (in_w, in_h) == (W, H)
     sun = jsky.sun_direction(0.3, 0.6)
     jstate = jstate or JState.create(W * H, OUT * OUT)
-    tstate = tstate or TState.create(W * H, OUT * OUT)
+    tstate = tstate or TState.create(W * H, OUT * OUT, "cpu")
     jcam_, tcam_ = jcam(OUT, OUT), tcam(OUT, OUT)
     for f in range(first, first + frames):
         if f > 0:
@@ -154,7 +190,7 @@ def test_render_frame_taau_output_and_framestate_npz(scenes, tmp_path):
     # packages render the next frame from it
     path = str(tmp_path / "state.npz")
     jstate.save(path)
-    loaded = TState.load(path)
+    loaded = TState.load(path, "cpu")
     np.testing.assert_array_equal(loaded.taa_color.numpy(), np.asarray(jstate.taa_color))
     np.testing.assert_array_equal(loaded.res_cur.m.numpy(), np.asarray(jstate.res_cur.m))
     assert loaded.taa_valid is True
@@ -190,12 +226,14 @@ def test_renderer_on_cpu_and_refusals(scenes, tmp_path):
     assert plain.wscene is None
     plain.render()
     for knob in (dict(deferred_shadows=True), dict(spp_pixel_major=True)):
-        rr = trenderer.Renderer(OUT, OUT, RenderConfig(**knob), ts, tcam(OUT, OUT))
+        rr = trenderer.Renderer(OUT, OUT, RenderConfig(**knob), ts, tcam(OUT, OUT),
+                                device="cpu")
         with pytest.raises(NotImplementedError):
             rr.render()
     alpha = trenderer.Renderer(OUT, OUT, RenderConfig(),
-                               dataclasses.replace(ts, has_alpha=True), tcam(OUT, OUT))
+                               dataclasses.replace(ts, has_alpha=True), tcam(OUT, OUT),
+                               device="cpu")
     with pytest.raises(NotImplementedError):
         alpha.render()
     with pytest.raises(NotImplementedError):
-        trenderer.Renderer(OUT, OUT, mesh=object())
+        trenderer.Renderer(OUT, OUT, mesh=object(), device="cpu")

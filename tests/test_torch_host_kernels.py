@@ -1,0 +1,73 @@
+"""The CUDA trace kernels' own source, run on the CPU.
+
+ops/cuda/host_check.py compiles csrc/wide_trace.cu and
+csrc/stream_trace.cu (with csrc/trace_common.cuh) for the host with g++;
+here they are bound in place of the nvcc builds and run through the
+wrappers' launch path (ctypes argument order, stack-overflow flag, the
+counting variant) on CPU tensors, held to the plain walks on primary and
+bounce rays: hit masks and occlusion equal, |dt| <= 1e-3, prim agreement
+> 99.5% (the bar chip_smoke.py holds them to on the card). This checks the
+kernels' logic; what nvcc accepts, and speed, show only on the card."""
+
+import pytest
+import torch
+
+from ilgpu_raytracing_tpu_torch import native as tnative
+from ilgpu_raytracing_tpu_torch.models import cornell, terrain
+from ilgpu_raytracing_tpu_torch.ops import cuda as cu
+from ilgpu_raytracing_tpu_torch.ops.cuda import host_check, stream, wide
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def host():
+    """The host builds bound as the kernel libraries for this module only;
+    the wrappers' library caches and launch counts are restored after."""
+    if not tnative.available():
+        pytest.skip("no C++ compiler")
+    libs = host_check.host_libraries()
+    saved = (cu.load_kernel_library, cu.stream_ptr, dict(wide.LAUNCHES),
+             dict(stream.LAUNCHES))
+    wide._state.clear()
+    stream._state.clear()
+    cu.load_kernel_library = lambda name: (libs[name], 0.0)
+    cu.stream_ptr = lambda t: None
+    try:
+        yield host_check
+    finally:
+        cu.load_kernel_library, cu.stream_ptr = saved[0], saved[1]
+        wide._state.clear()
+        stream._state.clear()
+        wide.LAUNCHES.update(saved[2])
+        stream.LAUNCHES.update(saved[3])
+
+
+CASES = {
+    "terrain_stream": (
+        stream, lambda: terrain.build_terrain_scene(grid_x=64, grid_z=32, device="cpu")[1],
+        terrain.terrain_camera),
+    "cornell_wide": (
+        wide, lambda: cornell.build_cornell_scene(tess=4, sphere_tess=(8, 12),
+                                                  blas_leaf_size=8, bvh_method="sah",
+                                                  device="cpu")[1],
+        cornell.cornell_camera),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_host_built_kernels_meet_the_plain_walk(host, case):
+    mod, build, camera = CASES[case]
+    scene = build()
+    ks = stream.prepare_stream(scene) if mod is stream else wide.prepare_scene(scene)
+    o, d = host.jittered_rays(camera(48, 32), 48, 32, 1)
+    assert host.check_walks(f"{case} primary", mod, ks, o, d)
+    bo, bd = host.bounce_rays(scene, host.primary_hits(mod, ks, o, d), o, d, 2)
+    assert bo.shape[0] > 100
+    assert host.check_walks(f"{case} bounce", mod, ks, bo, bd)
+    # the kernel launches counted (3 per check_walks) and the counting
+    # variant did not count
+    assert sum(mod.LAUNCHES.values()) >= 6
+    work = torch.zeros((2,), dtype=torch.int64)
+    mod._launch(ks, bo, bd, torch.full((bo.shape[0],), 1e30), any_hit=True, work=work)
+    assert int(work[0]) > 0 and int(work[1]) > 0

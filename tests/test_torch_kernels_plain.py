@@ -49,7 +49,7 @@ def _port_scene(js):
     tables = {k: np.asarray(getattr(js, k)) for k in _FIELDS}
     tables.update(has_alpha=js.has_alpha, blas_leaf_max=js.blas_leaf_max,
                   tlas_leaf_max=js.tlas_leaf_max)
-    return scene_from_numpy(tables)
+    return scene_from_numpy(tables, "cpu")
 
 
 def _setup(name, incoherent=False):

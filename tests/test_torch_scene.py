@@ -19,10 +19,10 @@ from ilgpu_raytracing_tpu_torch.ops.cuda import wide as twide
 
 torch.set_num_threads(1)
 
-def build_transformed_scene(scene_mod, cornell_mod):
+def build_transformed_scene(scene_mod, cornell_mod, **commit_kw):
     """Two instances with non-identity transforms: a uniformly scaled and
     rotated sphere set, and a translated triangle grid. Built the same way
-    with either package's modules."""
+    with either package's modules (`commit_kw` carries the port's device)."""
     b = scene_mod.SceneBuilder(blas_leaf_size=4)
     mat = b.add_material(scene_mod.Material(kd=(0.7, 0.6, 0.5)))
     s0 = b.add_sphere((0.0, 0.0, 0.0), 0.5, (1, 1, 1), mat)
@@ -33,19 +33,19 @@ def build_transformed_scene(scene_mod, cornell_mod):
     b.add_sphere_instance([s0, s1], o2w)
     v, t = cornell_mod._quad_grid((-2, 0, -2), (2, 0, -2), (-2, 0, 2), 6)
     b.add_mesh_instance(v, t, object_to_world=scene_mod.translation_affine((0, -0.6, 0)))
-    return None, b.commit()
+    return None, b.commit(**commit_kw)
 
 
 CASES = {
     "cornell_median": (
-        lambda m: m.build_cornell_scene(tess=4, sphere_tess=(8, 12)), False),
+        lambda m, **kw: m.build_cornell_scene(tess=4, sphere_tess=(8, 12), **kw), False),
     "cornell_sah_leaf8": (
-        lambda m: m.build_cornell_scene(tess=4, sphere_tess=(8, 12),
-                                        blas_leaf_size=8, bvh_method="sah"), True),
+        lambda m, **kw: m.build_cornell_scene(tess=4, sphere_tess=(8, 12), blas_leaf_size=8,
+                                              bvh_method="sah", **kw), True),
     "default_single": (
-        lambda m: m.build_default_scene(single_instance=True), False),
+        lambda m, **kw: m.build_default_scene(single_instance=True, **kw), False),
     "default_multi": (
-        lambda m: m.build_default_scene(single_instance=False), False),
+        lambda m, **kw: m.build_default_scene(single_instance=False, **kw), False),
     "transformed": (None, False),
 }
 
@@ -56,10 +56,10 @@ def _build(case):
         pytest.skip("no C++ compiler: the SAH build is native-only")
     if case == "transformed":
         return (build_transformed_scene(jscene, jcornell)[1],
-                build_transformed_scene(tscene, tcornell)[1])
+                build_transformed_scene(tscene, tcornell, device="cpu")[1])
     jmod = jcornell if case.startswith("cornell") else jscene
     tmod = tcornell if case.startswith("cornell") else tscene
-    return make(jmod)[1], make(tmod)[1]
+    return make(jmod)[1], make(tmod, device="cpu")[1]
 
 
 @pytest.mark.parametrize("op", ["create", "look_at", "translate", "set_fov",
@@ -102,7 +102,7 @@ def test_scene_tables_equal(case):
     tables = {k: np.asarray(getattr(js, k)) for k in tscene._FIELDS}
     tables.update(has_alpha=js.has_alpha, blas_leaf_max=js.blas_leaf_max,
                   tlas_leaf_max=js.tlas_leaf_max)
-    back = tscene.scene_from_numpy(tables).to_numpy()
+    back = tscene.scene_from_numpy(tables, "cpu").to_numpy()
     for name in tscene._FIELDS:
         _same(got[name], back[name], name)
 

@@ -1,30 +1,37 @@
 #!/usr/bin/env python3
-"""Where the time of the port's 1080p Cornell bench frame goes, on one GPU.
+"""Where the time of one of the port's 1080p frames goes, on one GPU.
 
-Renders the bench frame (tess=24, sphere_tess=(48,72), leaf 8, SAH; spp=2,
-max_depth=3; 1920x1080 out, sun (0.3, 0.6)) through the port's Renderer:
-two warm-up frames, then FRAMES frames under torch.profiler. Prints the
-wall time per frame, the device-busy share (sum of GPU kernel and memcpy
-time over wall time), the share of the hand-written kernels, and the top
-GPU kernels by total time.
+Renders, through the port's Renderer, either the Cornell bench frame
+(`--scene cornell`, the default: tess=24, sphere_tess=(48,72), leaf 8, SAH;
+spp=2, max_depth=3; sun (0.3, 0.6)) or the 1,048,576-triangle terrain of
+examples/large_mesh.py (`--scene terrain`: leaf 64, SAH; spp=2,
+max_depth=8), both 1920x1080 out: two warm-up frames, then FRAMES frames
+under torch.profiler. Prints the wall time per frame, the device-busy share
+(sum of GPU kernel and memcpy time over wall time), the share of the
+hand-written kernels, and the top GPU kernels by total time.
 
 Run from the repository root on a machine with one CUDA card:
-    python3 tools/torch_frame_profile.py
+    python3 tools/torch_frame_profile.py [--scene cornell|terrain]
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+import subprocess
 import sys
 import time
 
 import torch
 
 FRAMES = 3
-OWN_KERNELS = ("wide_kernel", "hist_kernel", "scan_kernel", "rank_kernel")
+OWN_KERNELS = ("trace_kernel", "hist_kernel", "scan_kernel", "rank_kernel")
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", choices=("cornell", "terrain"), default="cornell")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -32,17 +39,29 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from ilgpu_raytracing_tpu_torch.config import RenderConfig
-    from ilgpu_raytracing_tpu_torch.models.cornell import (
-        build_cornell_scene,
-        cornell_camera,
-    )
     from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
 
-    _, scene = build_cornell_scene(tess=24, sphere_tess=(48, 72),
-                                   blas_leaf_size=8, bvh_method="sah")
-    r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3), scene,
-                 cornell_camera(1920, 1080), device="cuda")
-    r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+    if args.scene == "terrain":
+        from ilgpu_raytracing_tpu_torch.models.terrain import (
+            build_terrain_scene,
+            terrain_camera,
+        )
+
+        _, scene = build_terrain_scene(device="cuda")
+        r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=8), scene,
+                     terrain_camera(1920, 1080), device="cuda")
+    else:
+        from ilgpu_raytracing_tpu_torch.models.cornell import (
+            build_cornell_scene,
+            cornell_camera,
+        )
+
+        _, scene = build_cornell_scene(tess=24, sphere_tess=(48, 72),
+                                       blas_leaf_size=8, bvh_method="sah",
+                                       device="cuda")
+        r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3), scene,
+                     cornell_camera(1920, 1080), device="cuda")
+        r.sun_azimuth, r.sun_elevation = 0.3, 0.6
     for _ in range(2):
         r.render().cpu()
     torch.cuda.synchronize()
@@ -57,7 +76,7 @@ def main() -> int:
     own_us = sum(e.self_device_time_total for e in events
                  if any(k in e.key for k in OWN_KERNELS))
     n_launch = sum(e.count for e in events)
-    print(f"{torch.cuda.get_device_name(0)}: {FRAMES} frames, wall "
+    print(f"{torch.cuda.get_device_name(0)}, {args.scene}: {FRAMES} frames, wall "
           f"{wall / FRAMES * 1e3:.3f} ms/frame, device busy "
           f"{dev_us / 1e3 / FRAMES:.3f} ms/frame ({dev_us / 1e6 / wall:.1%} of wall), "
           f"hand-written kernels {own_us / 1e3 / FRAMES:.3f} ms/frame, "
@@ -67,6 +86,9 @@ def main() -> int:
              f"{e.count / FRAMES:8.1f} calls/frame  {e.key[:110]}" for e in events]
     for line in lines[:40]:
         print(line)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip())
     return 0
 
 
