@@ -1,14 +1,18 @@
-// Device code shared by the wide kernels K1/K2 (wide_trace.cu) and the
-// streaming kernels K4/K5 (stream_trace.cu): the ray record, the slab test,
+// Device code shared by the trace kernels: the wide kernels K1/K2
+// (wide_trace.cu), the streaming kernels K4/K5 (stream_trace.cu), the binary
+// kernel K6 (binary_trace.cu) and the treelet kernels K7/K8
+// (treelet_trace.cu, streamtreelet_trace.cu): the ray record, the slab test,
 // the Moller-Trumbore and sphere predicates in the operation order of
-// ops/intersect.py, the leaf-row test, and the per-ray loop over instances
-// (world-AABB entry, world->object transform, packed closest-hit record).
+// ops/intersect.py, the leaf-row test, the per-ray loop over instances
+// (world-AABB entry, world->object transform, packed closest-hit record) and
+// the per-lane loop over a treelet want mask.
 //
-// Each kernel supplies a walker, a struct with
+// Each 8-wide kernel supplies a walker (wide_walker.cuh, stream_walker.cuh),
+// a struct with
 //   template <bool ANY_HIT, bool COUNT> __device__ bool walk(const Ray&,
 //       int root, bool is_tri, int inst_bits, float t_limit, float& t_best,
 //       int& pp, bool& occ, Work& work) const;
-// that walks one instance's 8-wide BVH and returns false on stack overflow.
+// that walks one 8-wide BVH from `root` and returns false on stack overflow.
 //
 // COUNT = true builds the counting variant: the same walk, which also tallies
 // the boxes and primitives it tests and adds them to a launch-wide total.
@@ -79,12 +83,13 @@ __device__ __forceinline__ bool slab(const float* __restrict__ b, const Ray& r,
 }
 
 // Moller-Trumbore in the operation order of ops/intersect.intersect_triangle;
-// returns t, or -1 when the determinant or barycentric tests reject (an
-// all-zero padding slot has det == 0 and is rejected).
-__device__ __forceinline__ float tri_t(float v0x, float v0y, float v0z,
-                                       float e1x, float e1y, float e1z,
-                                       float e2x, float e2y, float e2z,
-                                       const Ray& r) {
+// returns t with the barycentrics in bu/bv, or -1 when the determinant or
+// barycentric tests reject (an all-zero padding slot has det == 0 and is
+// rejected).
+__device__ __forceinline__ float tri_tuv(float v0x, float v0y, float v0z,
+                                         float e1x, float e1y, float e1z,
+                                         float e2x, float e2y, float e2z,
+                                         const Ray& r, float& bu, float& bv) {
   float px = r.dy * e2z - r.dz * e2y;
   float py = r.dz * e2x - r.dx * e2z;
   float pz = r.dx * e2y - r.dy * e2x;
@@ -92,15 +97,23 @@ __device__ __forceinline__ float tri_t(float v0x, float v0y, float v0z,
   bool ok = fabsf(det) >= 1e-8f;
   float inv_det = 1.0f / (ok ? det : 1.0f);
   float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
-  float bu = (tvx * px + tvy * py + tvz * pz) * inv_det;
+  bu = (tvx * px + tvy * py + tvz * pz) * inv_det;
   ok = ok && bu >= 0.0f && bu <= 1.0f;
   float qx = tvy * e1z - tvz * e1y;
   float qy = tvz * e1x - tvx * e1z;
   float qz = tvx * e1y - tvy * e1x;
-  float bv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  bv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
   ok = ok && bv >= 0.0f && bu + bv <= 1.0f;
   float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   return ok ? t : -1.0f;
+}
+
+__device__ __forceinline__ float tri_t(float v0x, float v0y, float v0z,
+                                       float e1x, float e1y, float e1z,
+                                       float e2x, float e2y, float e2z,
+                                       const Ray& r) {
+  float bu, bv;
+  return tri_tuv(v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, r, bu, bv);
 }
 
 // Sphere quadratic of ops/intersect.intersect_sphere: near root unless it is
@@ -155,6 +168,39 @@ __device__ __forceinline__ bool test_row(const float* __restrict__ row, int n,
   return false;
 }
 
+// Ray i of (N,3) origins and directions, with its inverse directions.
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
+                                        const float* __restrict__ d, int i) {
+  Ray w;
+  w.ox = o[3 * i];
+  w.oy = o[3 * i + 1];
+  w.oz = o[3 * i + 2];
+  w.dx = d[3 * i];
+  w.dy = d[3 * i + 1];
+  w.dz = d[3 * i + 2];
+  w.ix = inv_dir(w.dx);
+  w.iy = inv_dir(w.dy);
+  w.iz = inv_dir(w.dz);
+  return w;
+}
+
+// The world ray in object space under the 3x4 world->object affine m (the
+// unnormalized linear part: t transfers 1:1).
+__device__ __forceinline__ Ray transform_ray(const float* __restrict__ m,
+                                             const Ray& w) {
+  Ray r;
+  r.ox = m[0] * w.ox + m[1] * w.oy + m[2] * w.oz + m[3];
+  r.oy = m[4] * w.ox + m[5] * w.oy + m[6] * w.oz + m[7];
+  r.oz = m[8] * w.ox + m[9] * w.oy + m[10] * w.oz + m[11];
+  r.dx = m[0] * w.dx + m[1] * w.dy + m[2] * w.dz;
+  r.dy = m[4] * w.dx + m[5] * w.dy + m[6] * w.dz;
+  r.dz = m[8] * w.dx + m[9] * w.dy + m[10] * w.dz;
+  r.ix = inv_dir(r.dx);
+  r.iy = inv_dir(r.dy);
+  r.iz = inv_dir(r.dz);
+  return r;
+}
+
 // One ray over every instance of the scene: world-AABB entry test, then the
 // walker on the instance's BLAS in object space (t transfers 1:1, no
 // renormalization). A lane with t_max <= 0 is inactive and enters nothing.
@@ -169,16 +215,7 @@ __device__ void trace_ray(const Walker& wk, int i, const float* __restrict__ o,
                           int* __restrict__ overflow,
                           unsigned long long* __restrict__ work_out) {
   Work work;
-  Ray w;
-  w.ox = o[3 * i];
-  w.oy = o[3 * i + 1];
-  w.oz = o[3 * i + 2];
-  w.dx = d[3 * i];
-  w.dy = d[3 * i + 1];
-  w.dz = d[3 * i + 2];
-  w.ix = inv_dir(w.dx);
-  w.iy = inv_dir(w.dy);
-  w.iz = inv_dir(w.dz);
+  const Ray w = load_ray(o, d, i);
   const float t_limit = tmax[i];
   float t_best = fminf(T_INF, t_limit);
   int pp = -1;
@@ -188,19 +225,7 @@ __device__ void trace_ray(const Walker& wk, int i, const float* __restrict__ o,
     const float* ff = inst_f + k * INST_F;
     if (COUNT) ++work.boxes;
     if (!slab(ff + 12, w, ANY_HIT ? t_limit : t_best)) continue;
-    Ray r = w;
-    if (!ii[3]) {
-      const float* m = ff;
-      r.ox = m[0] * w.ox + m[1] * w.oy + m[2] * w.oz + m[3];
-      r.oy = m[4] * w.ox + m[5] * w.oy + m[6] * w.oz + m[7];
-      r.oz = m[8] * w.ox + m[9] * w.oy + m[10] * w.oz + m[11];
-      r.dx = m[0] * w.dx + m[1] * w.dy + m[2] * w.dz;
-      r.dy = m[4] * w.dx + m[5] * w.dy + m[6] * w.dz;
-      r.dz = m[8] * w.dx + m[9] * w.dy + m[10] * w.dz;
-      r.ix = inv_dir(r.dx);
-      r.iy = inv_dir(r.dy);
-      r.iz = inv_dir(r.dz);
-    }
+    const Ray r = ii[3] ? w : transform_ray(ff, w);
     const bool is_tri = ii[0] == BLAS_TRI_MESH;
     const int inst_bits = (ii[2] * 4 + (is_tri ? KIND_TRI : KIND_SPHERE))
                           << prim_bits;
@@ -260,6 +285,79 @@ int launch_trace(const float* o, const float* d, const float* tmax, int n,
     trace_kernel<ANY_HIT, false, Walker><<<blocks, THREADS, 0, s>>>(
         o, d, tmax, n, wk, inst_i, inst_f, n_inst, prim_bits, t_out, pp_out,
         occ_out, overflow, nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One lane of a treelet round (K7, K8): the lane's packet is
+// i / lanes_per_packet, and the lane walks every treelet k whose bit is set
+// in that packet's want mask, in increasing k, from t_root[k] with treelet
+// k's instance encoding t_inst[k] (inst_id * 4 + kind) and, unless every
+// instance is the identity, its world->object affine t_w2o[12k..]. t_best
+// runs across the treelets from the lane's t_max; pp stays -1 unless a hit
+// below t_max is found.
+template <bool COUNT, class Walker>
+__global__ void treelet_kernel(const float* __restrict__ o,
+                               const float* __restrict__ d,
+                               const float* __restrict__ tmax, int n,
+                               Walker wk, const int* __restrict__ mask,
+                               int lanes_per_packet,
+                               const int* __restrict__ t_root,
+                               const int* __restrict__ t_inst,
+                               const float* __restrict__ t_w2o,
+                               int n_treelets, int all_identity, int prim_bits,
+                               float* __restrict__ t_out,
+                               int* __restrict__ pp_out,
+                               int* __restrict__ overflow,
+                               unsigned long long* __restrict__ work_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Work work;
+  const Ray w = load_ray(o, d, i);
+  const float t_limit = tmax[i];
+  float t_best = fminf(T_INF, t_limit);
+  int pp = -1;
+  bool occ = false;
+  const unsigned want =
+      t_limit > 0.0f ? static_cast<unsigned>(mask[i / lanes_per_packet]) : 0u;
+  for (int k = 0; k < n_treelets; ++k) {
+    if (!((want >> k) & 1u) || t_root[k] < 0) continue;
+    const int inst_enc = t_inst[k];
+    const Ray r = all_identity ? w : transform_ray(t_w2o + 12 * k, w);
+    if (!wk.template walk<false, COUNT>(r, t_root[k], (inst_enc & 3) == KIND_TRI,
+                                        inst_enc << prim_bits, t_limit, t_best,
+                                        pp, occ, work)) {
+      atomicExch(overflow, 1);
+      break;
+    }
+  }
+  t_out[i] = t_best;
+  pp_out[i] = pp;
+  if (COUNT) {
+    atomicAdd(work_out, static_cast<unsigned long long>(work.boxes));
+    atomicAdd(work_out + 1, static_cast<unsigned long long>(work.prims));
+  }
+}
+
+// Launch a treelet round on `stream` (the counting variant when work_out is
+// given). Returns cudaGetLastError().
+template <class Walker>
+int launch_treelets(const float* o, const float* d, const float* tmax, int n,
+                    const Walker& wk, const int* mask, int lanes_per_packet,
+                    const int* t_root, const int* t_inst, const float* t_w2o,
+                    int n_treelets, int all_identity, int prim_bits,
+                    float* t_out, int* pp_out, int* overflow,
+                    unsigned long long* work_out, void* stream) {
+  const int blocks = (n + THREADS - 1) / THREADS;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks > 0 && work_out != nullptr) {
+    treelet_kernel<true, Walker><<<blocks, THREADS, 0, s>>>(
+        o, d, tmax, n, wk, mask, lanes_per_packet, t_root, t_inst, t_w2o,
+        n_treelets, all_identity, prim_bits, t_out, pp_out, overflow, work_out);
+  } else if (blocks > 0) {
+    treelet_kernel<false, Walker><<<blocks, THREADS, 0, s>>>(
+        o, d, tmax, n, wk, mask, lanes_per_packet, t_root, t_inst, t_w2o,
+        n_treelets, all_identity, prim_bits, t_out, pp_out, overflow, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,80 +32,22 @@
 // raises. Nodes are never dropped silently.
 //
 // The ray record, slab and leaf predicates and the loop over instances live in
-// trace_common.cuh, shared with the streaming kernels K4/K5.
+// trace_common.cuh, shared with the other trace kernels; the walk itself is
+// WideWalker (wide_walker.cuh), shared with the treelet kernel K7.
 //
 // Built with nvcc for sm_90a, without --use_fast_math: IEEE division and
 // sqrt, as the slab and Moller-Trumbore math needs (approximate reciprocals
 // produced distance-banded ring artifacts on the TPU).
 
-#include "trace_common.cuh"
+#include "wide_walker.cuh"
 
 namespace {
 
-using namespace trace;
-
 constexpr int PP_PRIM_BITS = 20;
 
-// Tables of the wide BVH; walk() is the per-instance DFS of trace_ray.
-struct WideWalker {
-  const float* __restrict__ wb;    // (W*48) child bounds, 8 x (bmin3 bmax3)
-  const int* __restrict__ wc;      // (W*8) >=0 inner, -1 empty, <=-2 leaf
-  const int* __restrict__ wp;      // (W*8) per-octant child order, 4 bits/rank
-  const float* __restrict__ tri;   // (Lt*128) packed triangle leaf rows
-  const float* __restrict__ sph;   // (Ls*128) packed sphere leaf rows
-  int leaf_width;
-  int stack_cap;
-
-  // Closest: tightens t_best / pp. Any-hit: returns at the first accepting
-  // primitive with occ = true. Returns false on stack overflow.
-  template <bool ANY_HIT, bool COUNT>
-  __device__ bool walk(const Ray& r, int root, bool is_tri, int inst_bits,
-                       float t_limit, float& t_best, int& pp, bool& occ,
-                       Work& work) const {
-    int stack[MAX_STACK];
-    int sp = 0;
-    stack[sp++] = root;
-    const int octant = (r.dx > 0.0f ? 4 : 0) + (r.dy > 0.0f ? 2 : 0) +
-                       (r.dz > 0.0f ? 1 : 0);
-    const float* __restrict__ rows = is_tri ? tri : sph;
-    while (sp > 0) {
-      const int wid = stack[--sp];
-      const unsigned perm = static_cast<unsigned>(wp[wid * WIDTH + octant]);
-      unsigned inner = 0;
-#pragma unroll
-      for (int rank = 0; rank < WIDTH; ++rank) {
-        const int c8 = (perm >> (rank * 4)) & 7;
-        const int child = wc[wid * WIDTH + c8];
-        if (child == EMPTY) continue;
-        if (COUNT) ++work.boxes;
-        if (!slab(wb + wid * 48 + c8 * 6, r, ANY_HIT ? t_limit : t_best)) continue;
-        if (child >= 0) {
-          inner |= 1u << rank;
-          continue;
-        }
-        // leaf encoding -(row * 16 + count) - 2
-        const int enc = -child - 2;
-        const int count = min(enc & 15, leaf_width);
-        const float* __restrict__ row = rows + static_cast<size_t>(enc >> 4) * ROW;
-        if (test_row<ANY_HIT, COUNT>(row, count, is_tri, r, inst_bits, t_limit,
-                                     t_best, pp, work)) {
-          occ = true;
-          return true;
-        }
-      }
-      // far-first pushes leave the nearest inner child on top
-#pragma unroll
-      for (int rank = WIDTH - 1; rank >= 0; --rank) {
-        if (!((inner >> rank) & 1u)) continue;
-        if (sp >= stack_cap) return false;
-        stack[sp++] = wc[wid * WIDTH + ((perm >> (rank * 4)) & 7)];
-      }
-    }
-    return true;
-  }
-};
-
 }  // namespace
+
+using trace::WideWalker;
 
 extern "C" {
 

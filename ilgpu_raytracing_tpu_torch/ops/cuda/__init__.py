@@ -45,7 +45,7 @@ def _nvcc() -> str:
 
 # headers under csrc/ included by the sources; they are part of every
 # library's build hash, so editing one rebuilds the libraries
-HEADERS = ("trace_common.cuh",)
+HEADERS = ("trace_common.cuh", "wide_walker.cuh", "stream_walker.cuh")
 
 
 def load_kernel_library(name: str):
@@ -75,10 +75,18 @@ def build_all() -> float:
     started together; returns the wall seconds of the builds."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos, stream, wide
+    from ilgpu_raytracing_tpu_torch.ops.cuda import (
+        binary,
+        sortpos,
+        stream,
+        streamtreelet,
+        treelet,
+        wide,
+    )
 
+    mods = (wide, stream, sortpos, binary, treelet, streamtreelet)
     t0 = time.monotonic()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        for f in [pool.submit(m.library) for m in (wide, stream, sortpos)]:
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+        for f in [pool.submit(m.library) for m in mods]:
             f.result()
     return time.monotonic() - t0

@@ -1,17 +1,21 @@
-"""Run the port's CUDA trace kernels (K1/K2, K4/K5) on the CPU.
+"""Run the port's CUDA trace kernels (K1/K2, K4/K5, K6, K7, K8) on the CPU.
 
-A rehearsal for machines without a card or nvcc: compiles
-`csrc/wide_trace.cu` and `csrc/stream_trace.cu` for the host with g++ (a
-stub `cuda_runtime.h`; each kernel launch becomes a loop over the grid;
-`-ffp-contract=off` in place of nvcc's `--fmad=false`), binds the results
-in place of the nvcc builds, and runs them through the wrappers' own launch
+A rehearsal for machines without a card or nvcc: compiles the trace sources
+(`csrc/wide_trace.cu`, `stream_trace.cu`, `binary_trace.cu`,
+`treelet_trace.cu`, `streamtreelet_trace.cu`) for the host with g++ (a stub
+`cuda_runtime.h`; each kernel launch becomes a loop over the grid;
+`-ffp-contract=off` in place of nvcc's `--fmad=false`), binds the results in
+place of the nvcc builds, and runs them through the wrappers' own launch
 path on CPU tensors. Scenes: the small terrain and the leaf-64 Cornell box
-(streaming tables, K4/K5), the leaf-8 Cornell box and the default
-six-instance sphere scene (wide tables, K1/K2); primary rays and one
-scattered bounce per hit. Each is held to the plain walk (hit masks and
-occlusion equal, |dt| <= 1e-3, prim agreement > 99.5%) and the boxes and
-primitives the counting variant tallies are printed. Exits 1 on a
-mismatch. It says nothing about speed, and nothing about what nvcc accepts.
+(streaming tables: K4/K5, and K8 on treelet cuts), the leaf-8 Cornell box
+and the default six-instance sphere scene (wide and binary tables: K1/K2,
+K6, and K7 on treelet cuts); primary rays and one scattered bounce per hit.
+K1/K2 and K4/K5 are held to the plain skip-index walk (hit masks and
+occlusion equal, |dt| <= 1e-3, prim agreement > 99.5%); K6, K7 and K8 to
+their own plain versions bit for bit (every output field, on random want
+masks for the rounds). The boxes and primitives the counting variant
+tallies are printed. Exits 1 on a mismatch. It says nothing about speed,
+and nothing about what nvcc accepts.
 
 Run from the repository root:
     python3 -m ilgpu_raytracing_tpu_torch.ops.cuda.host_check
@@ -53,8 +57,10 @@ inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v)
 }
 using std::min;
 """
+SOURCES = ("wide_trace", "stream_trace", "binary_trace", "treelet_trace",
+           "streamtreelet_trace")
 # kernel<...><<<blocks, THREADS, 0, s>>>(args);  ->  a loop over the grid
-LAUNCH = re.compile(r"(trace_kernel<[^>]*>)<<<blocks, THREADS, 0, s>>>\((.*?)\);", re.S)
+LAUNCH = re.compile(r"(\w+<[^>]*>)<<<blocks, THREADS, 0, s>>>\((.*?)\);", re.S)
 LOOP = (r"for (unsigned b_ = 0; b_ < unsigned(blocks); ++b_) "
         r"for (unsigned t_ = 0; t_ < unsigned(THREADS); ++t_) { blockIdx.x = b_; "
         r"blockDim.x = THREADS; threadIdx.x = t_; \1(\2); }")
@@ -66,7 +72,7 @@ def host_libraries() -> dict[str, ctypes.CDLL]:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "cuda_runtime.h"), "w") as f:
         f.write(STUB)
-    for name in cu.HEADERS + ("wide_trace.cu", "stream_trace.cu"):
+    for name in cu.HEADERS + tuple(src + ".cu" for src in SOURCES):
         with open(os.path.join(cu.CSRC, name)) as f:
             src = LAUNCH.sub(LOOP, f.read())
         if "<<<" in src:
@@ -75,7 +81,7 @@ def host_libraries() -> dict[str, ctypes.CDLL]:
         with open(os.path.join(out_dir, host_name), "w") as f:
             f.write(src)
     libs = {}
-    for name in ("wide_trace", "stream_trace"):
+    for name in SOURCES:
         so = os.path.join(out_dir, f"lib{name}.so")
         subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
                         "-fPIC", "-I", out_dir, "-o", so,
@@ -140,6 +146,56 @@ def check_walks(label, mod, ks, o, d) -> bool:
     return ok
 
 
+def _same(a, b) -> bool:
+    return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
+def check_binary(label, bs, o, d) -> bool:
+    """K6 (host build) vs its plain version: every output equal."""
+    from ilgpu_raytracing_tpu_torch.ops.cuda import binary
+    from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
+
+    n = o.shape[0]
+    tm = torch.full((n,), T_INF)
+    ok = _same(binary._launch(bs, o, d, tm, any_hit=False),
+               binary.trace_plain(bs, o, d, tm))
+    for t_max in (5.0, 1e29):
+        tt = torch.full((n,), t_max)
+        ok = ok and bool(torch.equal(binary._launch(bs, o, d, tt, any_hit=True)[0],
+                                     binary.shadow_plain(bs, o, d, tt)))
+    work = torch.zeros((2,), dtype=torch.int64)
+    binary._launch(bs, o, d, tm, any_hit=False, work=work)
+    print(f"{label} K6: {n} rays, outputs and occlusion (t_max 5, 1e29) "
+          f"{'equal' if ok else 'DIFFER'}; per ray {int(work[0]) / n:.1f} boxes, "
+          f"{int(work[1]) / n:.1f} primitives -> {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def check_round(label, mod, ks, o, d, tile_rows: int, seed: int) -> bool:
+    """One K7/K8 round (host build) vs its plain version on random want
+    masks (and on all treelets), with some lanes inactive: t and pp equal."""
+    from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
+
+    n = o.shape[0]
+    g = -(-n // (tile_rows * 128))
+    rng = np.random.default_rng(seed)
+    tm = torch.where(torch.as_tensor(rng.random(n) < 0.9), T_INF, 0.0).to(torch.float32)
+    ok = True
+    full = (1 << ks.n_treelets) - 1
+    for bits in (rng.integers(0, 1 << ks.n_treelets, size=g), np.full(g, full)):
+        mask = torch.as_tensor(np.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+                               .astype(np.int32))
+        ok = ok and _same(mod._launch(ks, mask, o, d, tm, tile_rows),
+                          mod.round_plain(ks, mask, o, d, tm, tile_rows))
+    work = torch.zeros((2,), dtype=torch.int64)
+    mod._launch(ks, mask, o, d, tm, tile_rows, work)
+    print(f"{label} round ({ks.n_treelets} treelets, {g} packets): t and pp "
+          f"{'equal' if ok else 'DIFFER'}; all-treelet round per ray "
+          f"{int(work[0]) / n:.1f} boxes, {int(work[1]) / n:.1f} primitives -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def primary_hits(mod, ks, o, d):
     """Plain closest hits of the primary rays, decoded (the bounce origins)."""
     from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
@@ -150,6 +206,7 @@ def primary_hits(mod, ks, o, d):
 
 
 def main() -> int:
+    torch.set_num_threads(1)  # one thread: the plain versions run as in the tests
     libs = host_libraries()
     cu.load_kernel_library = lambda name: (libs[name], 0.0)
     cu.stream_ptr = lambda t: None
@@ -157,7 +214,13 @@ def main() -> int:
     from ilgpu_raytracing_tpu_torch.models import cornell, terrain
     from ilgpu_raytracing_tpu_torch.models.camera import Camera
     from ilgpu_raytracing_tpu_torch.models.scene import build_default_scene
-    from ilgpu_raytracing_tpu_torch.ops.cuda import stream, wide
+    from ilgpu_raytracing_tpu_torch.ops.cuda import (
+        binary,
+        stream,
+        streamtreelet,
+        treelet,
+        wide,
+    )
 
     cases = (
         ("small terrain", stream,
@@ -183,6 +246,15 @@ def main() -> int:
         hit = primary_hits(mod, ks, o, d)
         bo, bd = bounce_rays(scene, hit, o, d, 2)
         ok &= check_walks(f"{label} bounce", mod, ks, bo, bd)
+        if mod is wide:
+            bs = binary.prepare_binary(scene)
+            ok &= check_binary(f"{label} primary", bs, o, d)
+            ok &= check_binary(f"{label} bounce", bs, bo, bd)
+            ts = treelet.prepare_treelets(ks, 8)
+            ok &= check_round(f"{label} bounce K7", treelet, ts, bo, bd, 1, 3)
+        else:
+            sts = streamtreelet.prepare_treelets_stream(ks, 8)
+            ok &= check_round(f"{label} bounce K8", streamtreelet, sts, bo, bd, 1, 3)
     return 0 if ok else 1
 
 

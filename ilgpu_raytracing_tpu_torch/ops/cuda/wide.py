@@ -203,13 +203,20 @@ def _stack_bound(wc_all: np.ndarray, roots, front: int = MAX_FRONT) -> int:
 def _thread_stack_bound(wc_all: np.ndarray, roots) -> int:
     """Per-thread DFS bound: a pop pushes at most 8 children, so along the
     deepest root-to-leaf chain of `depth` inner wide nodes the stack holds
-    at most 7 pending siblings per level above plus 8: 7 * depth + 1."""
-    depth = np.zeros((wc_all.shape[0],), np.int64)
-    # wide ids are assigned parent-first (collapse is preorder), so a
-    # reverse sweep sees every child before its parent
-    for wid in range(wc_all.shape[0] - 1, -1, -1):
-        kids = wc_all[wid][wc_all[wid] >= 0]
-        depth[wid] = 1 + (depth[kids].max() if kids.size else 0)
+    at most 7 pending siblings per level above plus 8: 7 * depth + 1.
+    Depths come from a post-order walk of each root, so nodes appended
+    after their children (the treelet cut's wrapper nodes) count too."""
+    depth = np.zeros((wc_all.shape[0],), np.int64)  # 0 = not yet known
+    for root in roots:
+        stack = [(int(root), False)]
+        while stack:
+            wid, done = stack.pop()
+            kids = wc_all[wid][wc_all[wid] >= 0]
+            if done:
+                depth[wid] = 1 + (depth[kids].max() if kids.size else 0)
+            elif not depth[wid]:
+                stack.append((wid, True))
+                stack.extend((int(c), False) for c in kids if not depth[c])
     return 7 * int(max(depth[list(roots)])) + 1
 
 
@@ -257,11 +264,16 @@ class WideScene:
     needs_bary: bool = True
 
 
+def _is_identity(w2o) -> bool:
+    """The world->object affine of a meta entry is the identity (within the
+    JAX package's 1e-12)."""
+    return all(abs(a - b) < 1e-12 for a, b in zip(w2o, _IDENTITY))
+
+
 def _instance_tables(meta, device):
     inst_i = np.array(
         [
-            [kind, root, inst_id,
-             int(all(abs(a - b) < 1e-12 for a, b in zip(w2o, _IDENTITY)))]
+            [kind, root, inst_id, int(_is_identity(w2o))]
             for kind, root, w2o, _wb, inst_id in meta
         ],
         np.int32,

@@ -11,10 +11,10 @@ final bounce, and a per-sample NaN scrub and fold.
 
 With a kernel scene the traces go through its kernels -- the wide K1/K2
 (ops/cuda/wide.py) for a WideScene, the streaming K4/K5
-(ops/cuda/stream.py) for a StreamScene -- and the counting sort K3
-(ops/cuda/sortpos.py); each runs its CUDA kernel on CUDA tensors and its
-plain version on CPU tensors. Without one the traces go to the plain
-tracer of ops/traverse.py directly.
+(ops/cuda/stream.py) for a StreamScene, the binary K6 (ops/cuda/binary.py)
+for a BinaryScene -- and the counting sort K3 (ops/cuda/sortpos.py); each
+runs its CUDA kernel on CUDA tensors and its plain version on CPU tensors.
+Without one the traces go to the plain tracer of ops/traverse.py directly.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from ilgpu_raytracing_tpu_torch.ops import restir as restir_mod
 from ilgpu_raytracing_tpu_torch.ops import sky as sky_ops
 from ilgpu_raytracing_tpu_torch.ops import sort as sort_mod
 from ilgpu_raytracing_tpu_torch.ops import traverse
+from ilgpu_raytracing_tpu_torch.ops.cuda import binary as binary_mod
 from ilgpu_raytracing_tpu_torch.ops.cuda import stream as stream_mod
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide as wide_mod
 from ilgpu_raytracing_tpu_torch.ops.sampling import sample_hemisphere_cosine
@@ -99,9 +100,18 @@ def _trace(scene, kscene, o, d, active=None, sort=False, morton_bounds=None,
            treelet_bounds=None):
     """Closest-hit dispatch: the kernel scene's closest-hit kernel (sorted
     around K3 for bounce batches) when one is given, the plain tracer
-    otherwise."""
+    otherwise. K6 returns a whole HitRecord, which the sort restores field
+    by field (ops/sort.sorted_closest); K1/K4 return the packed record."""
     if kscene is None:
         return traverse.trace_closest(scene, o, d, active=active)
+    if isinstance(kscene, binary_mod.BinaryScene):
+        def closest(oo, dd, act):
+            return binary_mod.trace_closest_binary(kscene, oo, dd, active=act)
+
+        if sort and active is not None:
+            return sort_mod.sorted_closest(closest, o, d, active, morton_bounds,
+                                           treelet_bounds)
+        return closest(o, d, active)
     packed, decode, _ = _kernels(kscene)
     if sort and active is not None:
         return sort_mod.sorted_closest_packed(
@@ -115,12 +125,15 @@ def _trace(scene, kscene, o, d, active=None, sort=False, morton_bounds=None,
 
 def _shadow(scene, kscene, o, d, t_max: float, active=None, sort=False,
             morton_bounds=None, treelet_bounds=None):
-    """Any-hit dispatch (K2 or K5, sorted around K3 for bounce batches). The
+    """Any-hit dispatch (K2, K5 or K6, sorted around K3 for bounce batches). The
     sorted path needs a scalar t_max (a per-lane limit would have to ride
     the permutation)."""
     if kscene is None:
         return traverse.shadow_occlusion(scene, o, d, t_max, active=active)
-    _, _, any_hit = _kernels(kscene)
+    if isinstance(kscene, binary_mod.BinaryScene):
+        any_hit = binary_mod.shadow_occlusion_binary
+    else:
+        _, _, any_hit = _kernels(kscene)
 
     def run(oo, dd, act):
         return any_hit(kscene, oo, dd, t_max, active=act)

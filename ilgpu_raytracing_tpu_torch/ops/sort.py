@@ -11,6 +11,8 @@ to the original lane order afterwards.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos
@@ -103,6 +105,18 @@ def _sorted_rays(o, d, active, morton_bounds, treelet_bounds=None):
     n_alive = torch.sum(active.to(torch.int32))
     act_s = torch.arange(o.shape[0], dtype=torch.int32, device=o.device) < n_alive
     return perm, pos, act_s
+
+
+def sorted_closest(trace_fn, o, d, active, morton_bounds=None, treelet_bounds=None):
+    """trace_fn(o, d, active) -> HitRecord on sorted rays (the binary K6
+    path); every field is restored to the original lane order by its own
+    gather."""
+    perm, pos, act_s = _sorted_rays(o, d, active, morton_bounds, treelet_bounds)
+    pl = perm.long()
+    hit = trace_fn(o[pl], d[pl], act_s)
+    pos_l = pos.long()
+    return dataclasses.replace(
+        hit, **{f.name: getattr(hit, f.name)[pos_l] for f in dataclasses.fields(hit)})
 
 
 def sorted_closest_packed(trace_fn, decode_fn, o, d, active, morton_bounds=None,

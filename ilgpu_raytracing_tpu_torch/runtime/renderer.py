@@ -11,7 +11,10 @@ hand-written kernels (K1/K2 wide walks up to 150k triangles, K4/K5
 streaming walks up to 4M, K3 counting sort) and refuses what they do not
 cover; on the CPU the same wrappers run their plain versions. It never
 moves work to another device or swaps a kernel for its plain version on
-its own.
+its own. A caller may set `r.wscene = binary.prepare_binary(r.scene)`
+(ops/cuda/binary.py) after construction, as the JAX package's callers set
+`r.pscene = traverse_kernel.prepare(scene)`: every trace of the frame then
+runs the binary skip-index kernel K6.
 """
 
 from __future__ import annotations

@@ -40,8 +40,15 @@ from ilgpu_raytracing_tpu_torch.ops.restir import Reservoirs as TRes
 from ilgpu_raytracing_tpu_torch.runtime import renderer as trenderer
 from ilgpu_raytracing_tpu_torch.runtime.framestate import FrameState as TState
 from ilgpu_raytracing_tpu_torch.utils import packing as tpack
+from torch_ref_native import ensure_reference_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    ensure_reference_native()
+
 
 W = H = 64
 OUT = 96  # TAAU output; internal resolution stays 64x64

@@ -29,8 +29,15 @@ from ilgpu_raytracing_tpu_torch.models.scene import _FIELDS, scene_from_numpy
 from ilgpu_raytracing_tpu_torch.ops import sort as tsort
 from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos as tspk
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide as twide
+from torch_ref_native import ensure_reference_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    ensure_reference_native()
+
 
 W, H = 64, 48
 

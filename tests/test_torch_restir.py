@@ -18,8 +18,15 @@ from ilgpu_raytracing_tpu.ops import sky as jsky
 from ilgpu_raytracing_tpu_torch.models.cornell import cornell_camera as tcam
 from ilgpu_raytracing_tpu_torch.ops import integrator as tint
 from ilgpu_raytracing_tpu_torch.ops import restir as trestir
+from torch_ref_native import ensure_reference_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    ensure_reference_native()
+
 
 W = H = 64
 SPP = 2

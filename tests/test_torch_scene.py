@@ -16,8 +16,15 @@ from ilgpu_raytracing_tpu_torch.models import camera as tcamera
 from ilgpu_raytracing_tpu_torch.models import cornell as tcornell
 from ilgpu_raytracing_tpu_torch.models import scene as tscene
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide as twide
+from torch_ref_native import ensure_reference_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    ensure_reference_native()
+
 
 def build_transformed_scene(scene_mod, cornell_mod, **commit_kw):
     """Two instances with non-identity transforms: a uniformly scaled and
@@ -169,3 +176,23 @@ def test_thread_stack_bound_covers_dfs(case):
     binary = sorted((int(f), int(c)) for _l, f, c, _s in ifl if c > 0)
     wide_leaves = sorted(((-int(v) - 2) // 16, (-int(v) - 2) % 16) for v in wc[wc <= -2])
     assert wide_leaves == binary
+
+
+def test_reference_native_recovers_from_a_failed_load():
+    """A failed load of the reference scene core is remembered by its
+    loader for the life of the process, and the reference then builds
+    median BVHs where SAH ones are asked for. The helper clears it: the
+    reference loads again and builds the same SAH tables as the port."""
+    import ilgpu_raytracing_tpu.native as ref_native
+
+    ref_native._tried, ref_native._lib = True, None
+    assert not ref_native.available()
+    ensure_reference_native()
+    assert ref_native.available()
+    js, ts = _build("cornell_sah_leaf8")
+    got = ts.to_numpy()
+    for name in ("blas_bmin", "blas_bmax", "blas_ifields", "tri_prim_idx"):
+        _same(getattr(js, name), got[name], name)
+    median = jcornell.build_cornell_scene(tess=4, sphere_tess=(8, 12), blas_leaf_size=8,
+                                          bvh_method="median")[1]
+    assert not np.array_equal(np.asarray(median.blas_ifields), got["blas_ifields"])

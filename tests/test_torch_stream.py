@@ -53,8 +53,15 @@ from ilgpu_raytracing_tpu_torch.ops.cuda import wide as twide
 from ilgpu_raytracing_tpu_torch.ops.restir import Reservoirs as TRes
 from ilgpu_raytracing_tpu_torch.runtime import renderer as trenderer
 from ilgpu_raytracing_tpu_torch.runtime.framestate import FrameState as TState
+from torch_ref_native import ensure_reference_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    ensure_reference_native()
+
 
 _STREAM_TABLES = ("wide_frame", "wide_qbounds", "wide_child", "wide_perm",
                   "tri_rows", "sph_rows", "tri_v0e", "inst_w2o", "sortkey_bounds")
