@@ -21,8 +21,12 @@ PyTorch version on the card:
 Phases:
   1. device: the card's name and power limit;
   2. build: one nvcc per kernel source, all started together (sm_90a);
-  3. K3 counting-sort positions vs the one-hot plain version, exact,
-     on 1,802,240 keys (129, 16 and 258 bins), beside torch.argsort;
+  3. K3 counting-sort positions vs the one-hot plain version, exact on
+     every lane: 1,802,240 frame-like keys at 129, 16 and 258 bins, every
+     key in one bin, descending keys, n = 1, 1,000 and 1,802,241, bins = 1
+     and 384; timed beside torch.argsort(stable=True) at 129 and 258 bins;
+     a key out of range must fail the kernel's device-side assert (in a
+     child process); ptxas's report of csrc/sortpos.cu;
   4. K1 closest hit / K2 any-hit vs the plain skip-index walk on the bench
      scene: primary rays and 1,802,240 sorted bounce rays, held to the bar
      of tests/test_wide_kernel.py (hit masks agree, relative t mismatch
@@ -51,7 +55,10 @@ Phases:
      the terrain's primary rays and 1,802,240 treelet-sorted bounce rays,
      held to the bar of tests/test_stream_kernel.py (hit masks equal, no
      |dt| > 1e-3 where both hit, prim agreement > 99.5%, K5 equal at t_max
-     5 and 1e29); K4/K5 timed on the full populations;
+     5 and 1e29); K5 equal to K4's hit mask at t_max 5 and 1e29 on all
+     901,120 primary and 1,802,240 bounce lanes; K4/K5 timed on the full
+     populations; K5's SIMD-efficiency count; ptxas's report of
+     csrc/stream_trace.cu;
  13. K8: `trace_closest_treelet_stream_packed` on the terrain's 1,802,240
      treelet-sorted bounce lanes equal to K4 (t and pp) on every lane; one
      K8 round equal to its plain version on the first 65,536 lanes; timed;
@@ -75,6 +82,7 @@ python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -153,35 +161,74 @@ def trace_bound(n: int, work, any_hit: bool, box_ops: int, tables,
     return bound(n_bytes, boxes * box_ops + prims * PRIM_OPS)
 
 
+def _k3_key_sets(rng):
+    """(label, keys, bins) of the K3 phase: the frame's shape (70% uniform,
+    a dead tail in the last bin) at 129, 16 and 258 bins, and the edges."""
+    n = K3_LANES
+
+    def frame_keys(m, bins):
+        live = int(m * 0.7)
+        return np.concatenate([rng.integers(0, bins - 1, size=live),
+                               np.full(m - live, bins - 1)])
+
+    return [
+        *((f"frame keys, {b} bins", frame_keys(n, b), b) for b in (129, 16, 258)),
+        ("every key in one bin", np.full(n, 57), 129),
+        ("descending keys", (np.arange(n)[::-1] * 258) // n, 258),
+        ("n=1", np.array([5]), 16),
+        ("n=1,000", rng.integers(0, 129, size=1000), 129),
+        ("n=1,802,241", frame_keys(n + 1, 258), 258),
+        ("bins=1", np.zeros(n), 1),
+        ("bins=384", rng.integers(0, 384, size=n), 384),
+    ]
+
+
+def _k3_bad_key_fails() -> str:
+    """A key outside [0, bins) in a child process: the device-side assert
+    must fail the next synchronizing call. Returns the first line of the
+    error that names the assert."""
+    code = ("import torch; from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos; "
+            "k = torch.zeros(5000, dtype=torch.int32, device='cuda'); k[4321] = 129; "
+            "sortpos.counting_pos(k, 129); torch.cuda.synchronize()")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    said = [ln for ln in proc.stderr.splitlines() if "assert" in ln.lower()]
+    check(proc.returncode != 0 and bool(said),
+          f"K3 took a key outside [0, bins) without an error: rc {proc.returncode}, "
+          f"{proc.stderr[-500:]}")
+    return said[0].strip()
+
+
 def phase_k3(dev, results):
+    from ilgpu_raytracing_tpu_torch.ops import cuda as cu
     from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos
 
-    n = K3_LANES
-    rng = np.random.default_rng(7)
-    for bins in (129, 16, 258):
-        live = int(n * 0.7)
-        key = np.concatenate([
-            rng.integers(0, bins - 1, size=live), np.full(n - live, bins - 1)
-        ]).astype(np.int32)
-        kt = torch.as_tensor(key, device=dev)
+    for line in cu.ptxas_info("sortpos"):
+        log(f"ptxas sortpos.cu: {line}")
+    for label, keys, bins in _k3_key_sets(np.random.default_rng(7)):
+        kt = torch.as_tensor(keys.astype(np.int32), device=dev)
         got = sortpos.counting_pos(kt, bins)
         want = sortpos.counting_pos_plain(kt, bins)
         torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        check(err == 0, f"K3 differs from its plain version at bins={bins}")
-        log(f"K3 bins={bins} n={n}: exact")
-        if bins == 129:
-            ms = cuda_ms(lambda: sortpos.counting_pos(kt, bins), 20)
-            plain_ms = cuda_ms(lambda: sortpos.counting_pos_plain(kt, bins), 3)
-            # the library call: a stable argsort gives the inverse of pos
-            lib_ms = cuda_ms(lambda: torch.argsort(kt, stable=True), 20)
+        n_diff = int((got != want).sum())
+        check(n_diff == 0, f"K3 {label}: {n_diff} of {kt.numel()} positions differ from plain")
+        log(f"K3 {label} (n={kt.numel()}, bins={bins}): equal to plain on every lane")
+        if label.startswith("frame keys") and bins != 16:
+            n = kt.numel()
             inv = torch.argsort(kt, stable=True)
             check(bool(torch.equal(got.long()[inv], torch.arange(n, device=dev))),
                   "K3 pos is not the inverse of the stable argsort")
-            log(f"K3 {n} lanes x 129 bins: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"torch.argsort(stable) {lib_ms:.4f} ms")
-            results["sortpos"] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-                                      **bound(8.0 * n, 0), library_ms=lib_ms)
+            ms = cuda_ms(lambda: sortpos.counting_pos(kt, bins), 20)
+            # the library call: a stable argsort gives the inverse of pos
+            lib_ms = cuda_ms(lambda: torch.argsort(kt, stable=True), 20)
+            ms2 = cuda_ms(lambda: sortpos.counting_pos(kt, bins), 20)
+            plain_ms = cuda_ms(lambda: sortpos.counting_pos_plain(kt, bins), 3)
+            log(f"K3 {n} lanes x {bins} bins: kernel {ms:.4f}; {ms2:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, torch.argsort(stable) {lib_ms:.4f} ms")
+            if bins == 129:
+                results["sortpos"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                          **bound(8.0 * n, 0), library_ms=lib_ms)
+    log(f"K3 with a key outside [0, bins): the child process failed: {_k3_bad_key_fails()}")
 
 
 def _trace_bar(ws, o, d, label):
@@ -810,13 +857,32 @@ def _strided(x, n_live, k):
     return x[idx].contiguous()
 
 
+def _k5_equals_k4(ss, o, d, active, label):
+    """K5's occlusion equal to K4's hit mask (pp >= 0) at the same t_max, 5
+    and 1e29, on every lane of a population: the two share the leaf
+    predicates, and a hit below t_max exists exactly when K4 finds one."""
+    from ilgpu_raytracing_tpu_torch.ops.cuda import stream
+
+    for t_max in (5.0, 1e29):
+        occ = stream.shadow_occlusion_stream(ss, o, d, t_max, active=active)
+        hit = stream.trace_closest_stream_packed(ss, o, d, active=active, t_max=t_max)[1] >= 0
+        n_diff = int((occ != hit).sum())
+        check(n_diff == 0, f"K5 {label} t_max={t_max}: differs from K4's hit mask on "
+                           f"{n_diff} of {o.shape[0]} lanes")
+        log(f"K5 {label} t_max={t_max:g}: occluded {int(occ.sum())}, equal to K4's hit "
+            f"mask on all {o.shape[0]} lanes")
+
+
 def phase_k4_k5(dev, results, scene, ss):
     from ilgpu_raytracing_tpu_torch.config import RenderConfig
     from ilgpu_raytracing_tpu_torch.models.terrain import terrain_camera
+    from ilgpu_raytracing_tpu_torch.ops import cuda as cu
     from ilgpu_raytracing_tpu_torch.ops import rays
     from ilgpu_raytracing_tpu_torch.ops.cuda import stream
     from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
 
+    for line in cu.ptxas_info("stream_trace"):
+        log(f"ptxas stream_trace.cu: {line}")
     in_w, in_h = RenderConfig().internal_resolution(1920, 1080)
     o, d = rays.generate_primary_rays(terrain_camera(1920, 1080), in_w, in_h, dev)
     o = o.contiguous()
@@ -847,15 +913,21 @@ def phase_k4_k5(dev, results, scene, ss):
         f"{k5_plain:.4f} ms (plain timings {time.monotonic() - t0:.1f} s)")
     tables = (ss.wide_frame, ss.wide_qbounds, ss.wide_child, ss.wide_perm,
               ss.tri_rows, ss.sph_rows, ss.inst_i, ss.inst_f)
+    k5_tables = (ss.anyhit_nodes, ss.tri_rows, ss.sph_rows, ss.inst_i, ss.inst_f)
     w4 = stream.count_work(ss, bo, bd, tmb, any_hit=False)
     w5 = stream.count_work(ss, bo, bd, tms, any_hit=True)
+    steps, warp_max = stream.anyhit_warp_steps(ss, bo, bd, tms)
     log(f"K4 bounce work: {w4[0]} boxes, {w4[1]} primitives; K5: {w5[0]} boxes, "
-        f"{w5[1]} primitives")
+        f"{w5[1]} primitives; K5 SIMD efficiency (lanes' boxes + primitives over 32 x "
+        f"each warp's slowest lane's): {steps} / (32 x {warp_max}) = "
+        f"{steps / (32.0 * warp_max):.4f}")
+    _k5_equals_k4(ss, o, d, None, "primary")
+    _k5_equals_k4(ss, bo, bd, act, "bounce (treelet-sorted)")
     results["stream_closest"] = dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain,
                                      **trace_bound(nb, w4, False, QBOX_OPS, tables),
                                      library_ms=None)
     results["stream_shadow"] = dict(max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain,
-                                    **trace_bound(nb, w5, True, QBOX_OPS, tables),
+                                    **trace_bound(nb, w5, True, QBOX_OPS, k5_tables),
                                     library_ms=None)
     return dict(bo=bo, bd=bd, act=act, n_alive=n_alive)
 
@@ -940,12 +1012,16 @@ def main() -> int:
                         "occlusion equal to the plain walk on > 99.5% of rays at t_max "
                         "5 and 1e29"),
         "sortpos": (csrc + "sortpos.cu", pallas + "sortpos_kernel.py:135",
-                    "positions equal to the plain counting sort at 129, 16, 258 bins"),
+                    "positions equal to the plain counting sort on every lane at 129, "
+                    "16, 258 bins and on the edge sets (one bin, descending, n = 1, "
+                    "1,000, 1,802,241, bins 1 and 384); a key out of range fails"),
         "stream_closest": (csrc + "stream_trace.cu", pallas + "stream_kernel.py:906",
                            f"hit masks equal, no |dt| > 1e-3, prim agreement > 99.5% "
                            f"on {subsets}"),
         "stream_shadow": (csrc + "stream_trace.cu", pallas + "stream_kernel.py:996",
-                          f"occlusion equal at t_max 5 and 1e29 on {subsets}"),
+                          f"occlusion equal to plain at t_max 5 and 1e29 on {subsets}, "
+                          f"and to K4's hit mask on all 901,120 primary and 1,802,240 "
+                          f"bounce lanes"),
         "binary_closest": (csrc + "binary_trace.cu", pallas + "traverse_kernel.py:487",
                            f"t, prim, inst, bu, bv equal to plain on every ray of "
                            f"{subsets}; 1080p frame within 2 levels of the K1/K2 "

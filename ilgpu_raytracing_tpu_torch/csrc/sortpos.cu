@@ -5,93 +5,178 @@
 // bit for bit, to the one-hot formulation of ops/sort.py:59-69: pos[i] =
 // (lanes of smaller keys) + (earlier lanes with the same key).
 //
-// What bounds it on an H100: HBM traffic and launch latency. At 1.8M lanes
-// the key and pos arrays are 7.2 MB each; the work per lane is a handful of
-// integer ops, so the kernel is a few passes over memory plus the latency of
-// three dependent launches.
+// What bounds it on an H100: launch latency. At 1.8M lanes the key and pos
+// arrays are 7.2 MB each (4.3 us at 3.35 TB/s); the work per lane is a
+// handful of integer ops.
 //
 // Design. The TPU kernel relied on its grid running in order to carry a
 // running per-bin prefix between blocks; Hopper blocks run in no order, so
-// the carry becomes an explicit scan:
-//   pass 1  per-block histograms in shared memory (atomics are fine here:
-//           counts do not depend on order), written bin-major: counts[bin][blk];
-//   scan    one block turns the (bin, block) table into exclusive starts, so
-//           start[bin][blk] = lanes of smaller bins + earlier blocks' lanes of
-//           this bin;
-//   pass 2  a deterministic rank inside the block: __match_any_sync groups
-//           equal keys of a warp, __popc(peers & lanemask_lt) ranks a lane
-//           among them, and per-warp per-bin counts in shared memory are
-//           prefix-summed in warp order. No atomics, so ties keep lane order.
-// A key outside [0, bins) sets *bad and the Python wrapper raises.
+// the carry becomes an explicit scan over tiles of TILE keys. Three
+// launches, each spread over the whole card:
+//   hist  one block per tile counts its keys per bin in shared memory (the
+//         leader of each group of equal keys in a warp adds the group's
+//         size) and writes the counts bin-major: counts[bin][tile];
+//   scan  one block per bin turns its row of tile counts into exclusive
+//         starts (a block-wide shuffle scan) and writes the bin's total;
+//   rank  one block per tile scans the bin totals into bin starts, then
+//         ranks its keys in lane order: warp w owns keys [w * 256, w * 256 +
+//         256) of the tile, read as 8 rounds of 32 consecutive keys;
+//         __match_any_sync groups equal keys of a round, __popc(peers &
+//         lanemask_lt) ranks a lane among them, and a per-warp per-bin
+//         running count in shared memory carries the rank across rounds.
+//         The per-warp counts are prefix-summed in warp order. No atomics,
+//         so ties keep lane order and the result is deterministic.
+// A single-pass sweep with a decoupled look-back per bin (Merrill & Garland
+// 2016) was the other candidate and is not used: every tile of a 1.8M-key
+// sort is resident at once, so all tiles publish their aggregates together
+// and the look-back of the last tiles walks about half the chain of
+// predecessors, one dependent L2 round trip per step (hundreds of steps),
+// where the per-bin scan costs one short launch. No pass runs on a single
+// block or grows with bins x tiles in one block.
+// A key outside [0, bins) fails a device-side assert in the histogram pass
+// (the next synchronizing call raises, as PyTorch's index kernels do) and
+// writes no position.
 
+#include <cassert>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BLOCK = 1024;  // lanes per block = threads per block
-constexpr int WARPS = BLOCK / 32;
+constexpr int THREADS = 512;  // hist and rank blocks
+constexpr int WARPS = THREADS / 32;
+constexpr int ROUNDS = 8;     // rounds of 32 keys per warp
+constexpr int TILE = THREADS * ROUNDS;
+constexpr int MAX_BINS = 384;
+constexpr int SCAN_THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(MAX_BINS <= THREADS, "the rank pass scans the bin totals in one pass");
 
-__global__ void hist_kernel(const int* __restrict__ key, int n, int bins, int nb,
-                            int* __restrict__ counts, int* __restrict__ bad) {
-  extern __shared__ int h[];
-  for (int b = threadIdx.x; b < bins; b += BLOCK) h[b] = 0;
-  __syncthreads();
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i < n) {
-    const int k = key[i];
-    if (k >= 0 && k < bins) {
-      atomicAdd(&h[k], 1);
-    } else {
-      atomicExch(bad, 1);
-    }
-  }
-  __syncthreads();
-  for (int b = threadIdx.x; b < bins; b += BLOCK) counts[b * nb + blockIdx.x] = h[b];
+__device__ __forceinline__ unsigned lanemask_lt() {
+  return (1u << (threadIdx.x & 31)) - 1u;
 }
 
-// Exclusive scan of data[0, total) in place, one block of BLOCK threads:
-// each thread sums a contiguous chunk, the chunk sums are scanned in shared
-// memory, then each thread rewrites its chunk with running starts.
-__global__ void scan_kernel(int* __restrict__ data, int total) {
-  __shared__ int sums[BLOCK];
-  const int per = (total + BLOCK - 1) / BLOCK;
-  const int tid = static_cast<int>(threadIdx.x);
-  const int start = min(tid * per, total);
-  const int end = min(start + per, total);
-  int s = 0;
-  for (int k = start; k < end; ++k) s += data[k];
-  sums[tid] = s;
-  __syncthreads();
-  for (int off = 1; off < BLOCK; off <<= 1) {
-    const int v = tid >= off ? sums[tid - off] : 0;
-    __syncthreads();
-    sums[tid] += v;
-    __syncthreads();
-  }
-  int run = tid > 0 ? sums[tid - 1] : 0;
-  for (int k = start; k < end; ++k) {
-    const int v = data[k];
-    data[k] = run;
-    run += v;
-  }
-}
-
-__global__ void rank_kernel(const int* __restrict__ key, int n, int bins, int nb,
-                            const int* __restrict__ starts, int* __restrict__ pos) {
-  extern __shared__ int wcount[];  // [WARPS][bins]
-  for (int k = threadIdx.x; k < WARPS * bins; k += BLOCK) wcount[k] = 0;
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
+// Inclusive scan of x over the block's warps; returns the exclusive prefix
+// of the calling thread and sets *total (every thread) to the block's sum.
+// wsum holds one int per warp. Every thread of the block must call it.
+template <int NT>
+__device__ __forceinline__ int block_exclusive_scan(int x, int* wsum, int* total) {
+  constexpr int NW = NT / 32;
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  int k = i < n ? key[i] : -1;
-  if (k >= bins) k = -1;  // out of range: flagged by hist_kernel
-  const unsigned peers = __match_any_sync(0xffffffffu, k);
-  const int rank = __popc(peers & ((1u << lane) - 1u));
-  if (k >= 0 && rank == 0) wcount[warp * bins + k] = __popc(peers);
+  const int warp = threadIdx.x >> 5;
+  const int v = x;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
   __syncthreads();
-  for (int b = threadIdx.x; b < bins; b += BLOCK) {
-    int run = 0;
+  if (warp == 0) {
+    int s = lane < NW ? wsum[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < NW; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, s, off);
+      if (lane >= off) s += y;
+    }
+    if (lane < NW) wsum[lane] = s;
+  }
+  __syncthreads();
+  *total = wsum[NW - 1];
+  const int excl = (warp > 0 ? wsum[warp - 1] : 0) + x - v;
+  __syncthreads();  // wsum may be reused by the caller's next scan
+  return excl;
+}
+
+// Index of this thread's first key: warp w of tile t owns keys
+// [t * TILE + w * 256, + 256), read as ROUNDS rounds of 32 consecutive keys.
+__device__ __forceinline__ int first_key() {
+  return blockIdx.x * TILE + (threadIdx.x >> 5) * (32 * ROUNDS) + (threadIdx.x & 31);
+}
+
+__global__ void __launch_bounds__(THREADS)
+hist_kernel(const int* __restrict__ key, int n, int bins, int tiles,
+            int* __restrict__ counts) {
+  __shared__ int h[MAX_BINS];
+  for (int b = threadIdx.x; b < bins; b += THREADS) h[b] = 0;
+  const int base = first_key();
+  int k[ROUNDS];
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const int i = base + r * 32;
+    k[r] = i < n ? key[i] : 0;
+  }
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    assert(k[r] >= 0 && k[r] < bins);  // counting_pos: key outside [0, bins)
+    if (base + r * 32 >= n || k[r] < 0 || k[r] >= bins) k[r] = -1;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const unsigned peers = __match_any_sync(FULL, k[r]);
+    if (k[r] >= 0 && (peers & lanemask_lt()) == 0) atomicAdd(&h[k[r]], __popc(peers));
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < bins; b += THREADS) counts[b * tiles + blockIdx.x] = h[b];
+}
+
+// counts[bin][0, tiles) -> exclusive starts in place; totals[bin] = sum.
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_kernel(int* __restrict__ counts, int tiles, int* __restrict__ totals) {
+  __shared__ int wsum[SCAN_THREADS / 32];
+  int* __restrict__ row = counts + blockIdx.x * tiles;
+  int carry = 0;
+  for (int c0 = 0; c0 < tiles; c0 += SCAN_THREADS) {
+    const int j = c0 + threadIdx.x;
+    int chunk;
+    const int excl = block_exclusive_scan<SCAN_THREADS>(j < tiles ? row[j] : 0, wsum,
+                                                        &chunk);
+    if (j < tiles) row[j] = carry + excl;
+    carry += chunk;
+  }
+  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
+}
+
+__global__ void __launch_bounds__(THREADS)
+rank_kernel(const int* __restrict__ key, int n, int bins, int tiles,
+            const int* __restrict__ starts, const int* __restrict__ totals,
+            int* __restrict__ pos) {
+  __shared__ int wcount[WARPS * MAX_BINS];  // per warp, per bin
+  __shared__ int start[MAX_BINS];           // bin start + earlier tiles' lanes
+  __shared__ int wsum[WARPS];
+  const int warp = threadIdx.x >> 5;
+  for (int j = threadIdx.x; j < WARPS * bins; j += THREADS) wcount[j] = 0;
+  {
+    const int b = threadIdx.x;  // bins <= MAX_BINS <= THREADS
+    int sum;
+    const int excl = block_exclusive_scan<THREADS>(b < bins ? totals[b] : 0, wsum, &sum);
+    if (b < bins) start[b] = excl + starts[b * tiles + blockIdx.x];
+  }
+  const int base = first_key();
+  int k[ROUNDS];
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const int i = base + r * 32;
+    k[r] = i < n ? key[i] : -1;
+    if (k[r] >= bins) k[r] = -1;  // out of range: the histogram pass asserts
+  }
+  __syncthreads();
+
+  int local[ROUNDS];
+  int* mine = wcount + warp * bins;
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const unsigned peers = __match_any_sync(FULL, k[r]);
+    const int rank = __popc(peers & lanemask_lt());
+    const int before = k[r] >= 0 ? mine[k[r]] : 0;
+    __syncwarp();
+    if (k[r] >= 0 && rank == 0) mine[k[r]] = before + __popc(peers);
+    __syncwarp();
+    local[r] = before + rank;
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < bins; b += THREADS) {
+    int run = start[b];
     for (int w = 0; w < WARPS; ++w) {
       const int v = wcount[w * bins + b];
       wcount[w * bins + b] = run;
@@ -99,7 +184,10 @@ __global__ void rank_kernel(const int* __restrict__ key, int n, int bins, int nb
     }
   }
   __syncthreads();
-  if (k >= 0) pos[i] = starts[k * nb + blockIdx.x] + wcount[warp * bins + k] + rank;
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    if (k[r] >= 0) pos[base + r * 32] = mine[k[r]] + local[r];
+  }
 }
 
 }  // namespace
@@ -110,19 +198,21 @@ const char* sortpos_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int sortpos_block() { return BLOCK; }
+int sortpos_tile() { return TILE; }
 
-// Shared memory of the rank pass is WARPS * bins ints; callers keep bins
-// within the 48 KB default (bins <= 384).
-int sortpos_counting_pos(const int* key, int n, int bins, int* counts, int* pos,
-                         int* bad, void* stream) {
+int sortpos_max_bins() { return MAX_BINS; }
+
+// scratch: bins * tiles + bins ints, tiles = ceil(n / TILE); bins in
+// [1, MAX_BINS]. Three launches on `stream`, no host synchronization.
+int sortpos_counting_pos(const int* key, int n, int bins, int* scratch, int* pos,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = (n + BLOCK - 1) / BLOCK;
-  if (nb > 0) {
-    hist_kernel<<<nb, BLOCK, bins * sizeof(int), s>>>(key, n, bins, nb, counts, bad);
-    scan_kernel<<<1, BLOCK, 0, s>>>(counts, bins * nb);
-    rank_kernel<<<nb, BLOCK, WARPS * bins * sizeof(int), s>>>(key, n, bins, nb,
-                                                              counts, pos);
+  const int tiles = (n + TILE - 1) / TILE;
+  if (tiles > 0) {
+    int* totals = scratch + bins * tiles;
+    hist_kernel<<<tiles, THREADS, 0, s>>>(key, n, bins, tiles, scratch);
+    scan_kernel<<<bins, SCAN_THREADS, 0, s>>>(scratch, tiles, totals);
+    rank_kernel<<<tiles, THREADS, 0, s>>>(key, n, bins, tiles, scratch, totals, pos);
   }
   return static_cast<int>(cudaGetLastError());
 }

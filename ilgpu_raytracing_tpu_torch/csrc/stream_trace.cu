@@ -1,5 +1,5 @@
 // K4 + K5: closest-hit and any-hit walks of the quantized 8-wide BVH of a
-// large scene (150k to 4M triangles), one thread per ray.
+// large scene (150k to 4M triangles).
 //
 // Replaces the TPU kernels of ilgpu_raytracing_tpu/ops/pallas/stream_kernel.py:
 //   K4 _make_closest_kernel (launched by _run_trace, pallas_call at :906)
@@ -27,7 +27,7 @@
 // What this design does about it: the TPU kernel's packet shape (2048-lane
 // tiles behind one scalar SMEM stack, FRONT-node frontiers, subtile want
 // masks, a double-buffered 8 KB DMA per leaf) answers TPU constraints and is
-// not carried over. As in K1, each thread keeps its own DFS stack in local
+// not carried over. As in K1, K4 keeps a DFS stack per thread in local
 // memory (bound 7 * wide depth + 1 from the host; overflow sets a flag and
 // the wrapper raises), orders children by its own octant through wide_perm,
 // and tests hit leaves near-first so t_best tightens early. A triangle slot
@@ -35,7 +35,14 @@
 // batches (destination treelet, ops/sort.py) groups rays that fetch the
 // same leaves. Warp-cooperative leaf staging in shared memory (the DMA idea
 // redone for Hopper) is later work.
+//
+// K5 has a walk of its own (stream_anyhit.cuh): occlusion needs no order,
+// so it drops the octant order, the far-first pushes and the 1 KB stack for
+// node-group entries in shared memory, reads each node as one packed
+// 128-byte record, and lets a lane visit nodes until it has a leaf to test,
+// so that the lanes of a warp test leaves together.
 
+#include "stream_anyhit.cuh"
 #include "stream_walker.cuh"
 
 namespace {
@@ -69,18 +76,23 @@ int stream_trace_closest(const float* o, const float* d, const float* tmax, int 
                                     overflow, work, stream);
 }
 
-// K5: any-hit occlusion within (T_EPS, tmax). occ_out (n,) bool.
-int stream_trace_shadow(const float* o, const float* d, const float* tmax, int n,
-                        const float* wf, const int* wq, const int* wc,
-                        const int* wp, const float* tri_rows,
+int stream_anyhit_max_depth() { return trace::MAX_DEPTH; }
+
+// K5: any-hit occlusion within (T_EPS, tmax). nodes (W, 32) int32, 16-byte
+// aligned (ops/cuda/stream.pack_anyhit_nodes); depth_cap the wide depth;
+// occ_out (n,) bool; overflow (1,) zeroed by the caller; work (2,) and
+// warp_max (ceil(n / 32),) zeroed for the counting variant, or both null.
+int stream_trace_anyhit(const float* o, const float* d, const float* tmax, int n,
+                        const int* nodes, const float* tri_rows,
                         const float* sph_rows, const int* inst_i,
-                        const float* inst_f, int n_inst, int stack_cap,
-                        bool* occ_out, int* overflow, unsigned long long* work,
+                        const float* inst_f, int n_inst, int depth_cap,
+                        bool* occ_out, int* overflow,
+                        unsigned long long* work, unsigned* warp_max,
                         void* stream) {
-  const StreamWalker wk{wf, wq, wc, wp, tri_rows, sph_rows, stack_cap};
-  return trace::launch_trace<true>(o, d, tmax, n, wk, inst_i, inst_f, n_inst,
-                                   SPP_PRIM_BITS, nullptr, nullptr, occ_out,
-                                   overflow, work, stream);
+  const trace::AnyHitWalker wk{reinterpret_cast<const int4*>(nodes), tri_rows,
+                               sph_rows, depth_cap};
+  return trace::launch_anyhit(o, d, tmax, n, wk, inst_i, inst_f, n_inst, occ_out,
+                              overflow, work, warp_max, stream);
 }
 
 }  // extern "C"

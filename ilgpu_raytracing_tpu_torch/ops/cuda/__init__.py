@@ -18,11 +18,12 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import subprocess
 import time
 
 import torch
 
-from ilgpu_raytracing_tpu_torch.utils.build import PKG_DIR, build_and_load
+from ilgpu_raytracing_tpu_torch.utils.build import BUILD_DIR, PKG_DIR, build_and_load
 
 CSRC = os.path.join(PKG_DIR, "csrc")
 NVCC_FLAGS = [
@@ -45,7 +46,8 @@ def _nvcc() -> str:
 
 # headers under csrc/ included by the sources; they are part of every
 # library's build hash, so editing one rebuilds the libraries
-HEADERS = ("trace_common.cuh", "wide_walker.cuh", "stream_walker.cuh")
+HEADERS = ("trace_common.cuh", "wide_walker.cuh", "stream_walker.cuh",
+           "stream_anyhit.cuh")
 
 
 def load_kernel_library(name: str):
@@ -54,6 +56,21 @@ def load_kernel_library(name: str):
         name, [_nvcc()] + NVCC_FLAGS, [os.path.join(CSRC, name + ".cu")],
         tuple(os.path.join(CSRC, h) for h in HEADERS),
     )
+
+
+def ptxas_info(name: str) -> list[str]:
+    """ptxas's report for csrc/<name>.cu under the build's flags (each
+    kernel's registers, stack frame, spills, shared memory), from a cubin
+    compiled into the build directory."""
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"{name}.cubin")
+    proc = subprocess.run(
+        [_nvcc()] + flags + ["-cubin", "-Xptxas", "-v", "-o", out,
+                             os.path.join(CSRC, name + ".cu")],
+        capture_output=True, text=True, check=True)
+    return [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+            if "ptxas info" in ln and "Compile time" not in ln]
 
 
 def check(lib, prefix: str, err: int) -> None:

@@ -11,9 +11,11 @@ path on CPU tensors. Scenes: the small terrain and the leaf-64 Cornell box
 and the default six-instance sphere scene (wide and binary tables: K1/K2,
 K6, and K7 on treelet cuts); primary rays and one scattered bounce per hit.
 K1/K2 and K4/K5 are held to the plain skip-index walk (hit masks and
-occlusion equal, |dt| <= 1e-3, prim agreement > 99.5%); K6, K7 and K8 to
-their own plain versions bit for bit (every output field, on random want
-masks for the rounds). The boxes and primitives the counting variant
+occlusion equal, |dt| <= 1e-3, prim agreement > 99.5%); K5 also, with a
+tenth of the lanes inactive, to the plain walk and to K4's hit mask at the
+same t_max; K6, K7 and K8 to their own
+plain versions bit for bit (every output field, on random want masks for
+the rounds). The boxes and primitives the counting variant
 tallies are printed. Exits 1 on a mismatch. It says nothing about speed,
 and nothing about what nvcc accepts.
 
@@ -39,11 +41,15 @@ STUB = """#pragma once
 #include <algorithm>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __shared__ static
+#define __launch_bounds__(...)
 struct float4 { float x, y, z, w; };
+struct int4 { int x, y, z, w; };
 struct Dim { unsigned x, y, z; };
 static Dim blockIdx, threadIdx, blockDim;
 typedef void* cudaStream_t;
@@ -51,7 +57,14 @@ typedef int cudaError_t;
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
 inline float4 __ldg(const float4* p) { return *p; }
+inline int4 __ldg(const int4* p) { return *p; }
+inline int __ldg(const int* p) { return *p; }
+inline float __int_as_float(int v) { float f; std::memcpy(&f, &v, sizeof f); return f; }
+inline int __ffs(int v) { return __builtin_ffs(v); }
 inline int atomicExch(int* p, int v) { int o = *p; *p = v; return o; }
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  unsigned o = *p; if (v > o) *p = v; return o;
+}
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   unsigned long long o = *p; *p += v; return o;
 }
@@ -59,8 +72,8 @@ using std::min;
 """
 SOURCES = ("wide_trace", "stream_trace", "binary_trace", "treelet_trace",
            "streamtreelet_trace")
-# kernel<...><<<blocks, THREADS, 0, s>>>(args);  ->  a loop over the grid
-LAUNCH = re.compile(r"(\w+<[^>]*>)<<<blocks, THREADS, 0, s>>>\((.*?)\);", re.S)
+# kernel<...><<<blocks, THREADS, smem, s>>>(args);  ->  a loop over the grid
+LAUNCH = re.compile(r"(\w+<[^>]*>)<<<blocks, THREADS, \w+, s>>>\((.*?)\);", re.S)
 LOOP = (r"for (unsigned b_ = 0; b_ < unsigned(blocks); ++b_) "
         r"for (unsigned t_ = 0; t_ < unsigned(THREADS); ++t_) { blockIdx.x = b_; "
         r"blockDim.x = THREADS; threadIdx.x = t_; \1(\2); }")
@@ -142,6 +155,30 @@ def check_walks(label, mod, ks, o, d) -> bool:
           f"{agree:.5f}, occlusion differs on {occ_diff} (t_max 5, 1e29); "
           f"per ray {int(work[0]) / n:.1f} boxes, {int(work[1]) / n:.1f} "
           f"primitives ({int(work[1]) / n_hit:.1f} per hit) -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def check_anyhit(label, ss, o, d, seed: int) -> bool:
+    """K5 (host build) with some lanes inactive: occlusion equal to the plain
+    walk and to K4's hit mask at t_max 5 and 1e29; prints K5's
+    SIMD-efficiency count."""
+    from ilgpu_raytracing_tpu_torch.ops.cuda import stream
+
+    n = o.shape[0]
+    act = torch.as_tensor(np.random.default_rng(seed).random(n) < 0.9)
+    ok = True
+    for t_max in (5.0, 1e29):
+        tt = torch.where(act, t_max, 0.0).to(torch.float32)
+        occ = stream._launch(ss, o, d, tt, any_hit=True)[0]
+        hit_k4 = stream._launch(ss, o, d, tt, any_hit=False)[1] >= 0
+        ok = ok and bool(torch.equal(occ, stream.shadow_plain(ss, o, d, tt)))
+        ok = ok and bool(torch.equal(occ, hit_k4)) and not bool(occ[~act].any())
+    steps, warp_max = stream.anyhit_warp_steps(
+        ss, o, d, torch.where(act, 1e29, 0.0).to(torch.float32))
+    print(f"{label} K5: {n} rays ({int(act.sum())} active), occlusion at t_max 5 and "
+          f"1e29 {'equal' if ok else 'NOT equal'} to the plain walk and K4's hit mask; "
+          f"SIMD efficiency {steps / max(1, 32 * warp_max):.4f} -> "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     return ok
 
@@ -253,6 +290,7 @@ def main() -> int:
             ts = treelet.prepare_treelets(ks, 8)
             ok &= check_round(f"{label} bounce K7", treelet, ts, bo, bd, 1, 3)
         else:
+            ok &= check_anyhit(f"{label} bounce", ks, bo, bd, 4)
             sts = streamtreelet.prepare_treelets_stream(ks, 8)
             ok &= check_round(f"{label} bounce K8", streamtreelet, sts, bo, bd, 1, 3)
     return 0 if ok else 1

@@ -4,6 +4,9 @@
 counting sort of `key` (int32 in [0, bins)). On a CUDA tensor it launches
 the kernel (or raises); on a CPU tensor it runs the plain one-hot
 formulation of ops/sort.py:59-69, which is also the kernel's definition.
+The CUDA path does not synchronize with the host: a key outside [0, bins)
+fails the kernel's device-side assert, which the next synchronizing call
+raises (as PyTorch's own index kernels do).
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import torch
 
 from ilgpu_raytracing_tpu_torch.ops import cuda as cu
 
-MAX_BINS = 384  # rank pass keeps 32 warps x bins counters in 48 KB of smem
+MAX_BINS = 384  # rank pass keeps 16 warps x bins counters in shared memory
 
 LAUNCHES = {"sortpos": 0}
 
@@ -24,10 +27,12 @@ def library():
     if "lib" not in _state:
         lib, seconds = cu.load_kernel_library("sortpos")
         lib.sortpos_counting_pos.restype = cu.CI
-        lib.sortpos_counting_pos.argtypes = [
-            cu.VP, cu.CI, cu.CI, cu.VP, cu.VP, cu.VP, cu.VP,
-        ]
-        lib.sortpos_block.restype = cu.CI
+        lib.sortpos_counting_pos.argtypes = [cu.VP, cu.CI, cu.CI, cu.VP, cu.VP, cu.VP]
+        lib.sortpos_tile.restype = cu.CI
+        lib.sortpos_max_bins.restype = cu.CI
+        if lib.sortpos_max_bins() < MAX_BINS:
+            raise RuntimeError(f"sortpos kernel takes {lib.sortpos_max_bins()} bins, "
+                               f"fewer than MAX_BINS={MAX_BINS}")
         _state["lib"] = lib
         return lib, seconds
     return _state["lib"], 0.0
@@ -61,16 +66,13 @@ def counting_pos(key: torch.Tensor, bins: int) -> torch.Tensor:
         raise ValueError(f"counting_pos: unsupported device {key.device}")
     lib, _ = library()
     n = key.shape[0]
-    nb = -(-n // lib.sortpos_block())
-    counts = torch.empty((max(1, bins * nb),), dtype=torch.int32, device=key.device)
+    if n >= 1 << 30:
+        raise ValueError(f"counting_pos: {n} keys overflow the int32 positions")
+    tiles = -(-n // lib.sortpos_tile())
+    scratch = torch.empty((bins * tiles + bins,), dtype=torch.int32, device=key.device)
     pos = torch.empty((n,), dtype=torch.int32, device=key.device)
-    bad = torch.zeros((1,), dtype=torch.int32, device=key.device)
-    err = lib.sortpos_counting_pos(
-        key.data_ptr(), n, bins, counts.data_ptr(), pos.data_ptr(),
-        bad.data_ptr(), cu.stream_ptr(key),
-    )
+    err = lib.sortpos_counting_pos(key.data_ptr(), n, bins, scratch.data_ptr(),
+                                   pos.data_ptr(), cu.stream_ptr(key))
     cu.check(lib, "sortpos", err)
     LAUNCHES["sortpos"] += 1
-    if int(bad.item()) != 0:
-        raise ValueError(f"counting_pos: a key lies outside [0, {bins})")
     return pos

@@ -11,8 +11,11 @@ Host side (numpy), ported from the JAX package's
 * `_quantize_bounds`: u8 child boxes against a per-node frame, rounded
   outward in the kernel's own float32 dequantization.
 Tables are identical to the JAX package's. As in ops/cuda/wide.py, the
-static `meta` tuple also becomes a device instance table, and the
-per-thread DFS stack bound (7 * wide depth + 1) is derived for the kernels.
+static `meta` tuple also becomes a device instance table, and the wide
+depth is derived for the kernels: K4's per-thread DFS stack bound is 7 *
+depth + 1, K5's node-group stack holds `depth` entries.
+K5 reads one more table, `anyhit_nodes`: the node tables packed into one
+128-byte record per node (`pack_anyhit_nodes`).
 
 Device side: `trace_closest_stream_packed` (K4) and
 `shadow_occlusion_stream` (K5) launch the CUDA kernels on CUDA tensors and
@@ -52,7 +55,7 @@ from ilgpu_raytracing_tpu_torch.ops.cuda.wide import (
     _pp_to_record,
     _scene_needs_bary,
     _stack_bound,
-    _thread_stack_bound,
+    _wide_depth,
     launch_walk,
     plain_closest_packed,
 )
@@ -98,8 +101,31 @@ class StreamScene:
     meta: tuple = ()
     rows_per_leaf: int = ROWS_PER_LEAF  # most rows of any leaf
     stack_cap: int = 256  # TPU frontier bound (table parity with the JAX prep)
-    thread_stack: int = 1  # per-thread DFS bound passed to the kernels
+    wide_depth: int = 0  # most inner wide nodes on a root-to-leaf chain
     needs_bary: bool = True
+    # (W, 32) i32 K5 node records, derived from the wide tables above
+    anyhit_nodes: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.anyhit_nodes = pack_anyhit_nodes(self.wide_frame, self.wide_qbounds,
+                                              self.wide_child)
+
+    @property
+    def thread_stack(self) -> int:
+        """K4's per-thread DFS bound (wide._thread_stack_bound)."""
+        return 7 * self.wide_depth + 1
+
+
+def pack_anyhit_nodes(wide_frame, wide_qbounds, wide_child) -> torch.Tensor:
+    """K5's node table: per wide node one 128-byte record of 32 int32 words,
+    the frame (lo.xyz, scale.xyz as float32 bits), two zero words, the 16
+    quantized-box words and the 8 child words, on the tables' device."""
+    w = wide_child.numel() // WIDTH
+    return torch.cat([
+        wide_frame.view(torch.int32).view(w, 6),
+        torch.zeros((w, 2), dtype=torch.int32, device=wide_child.device),
+        wide_qbounds.view(w, 16), wide_child.view(w, WIDTH),
+    ], dim=1).contiguous()
 
 
 def prepare_stream(scene: SceneData) -> StreamScene:
@@ -364,7 +390,6 @@ def stream_from_numpy(tables: dict, scene: SceneData) -> StreamScene:
         for k, r, w2o, wb, i in tables["meta"]
     )
     wc_all = np.asarray(tables["wide_child"], np.int32).reshape(-1, WIDTH)
-    thread_stack = _thread_stack_bound(wc_all, [m[1] for m in meta])
     inst_i, inst_f = _instance_tables(meta, dev)
 
     def t(name, dtype):
@@ -387,7 +412,7 @@ def stream_from_numpy(tables: dict, scene: SceneData) -> StreamScene:
         meta=meta,
         rows_per_leaf=int(tables["rows_per_leaf"]),
         stack_cap=int(tables["stack_cap"]),
-        thread_stack=thread_stack,
+        wide_depth=_wide_depth(wc_all, [m[1] for m in meta]),
         needs_bary=bool(tables["needs_bary"]),
     )
 
@@ -405,15 +430,55 @@ def library():
                   cu.VP, cu.VP, cu.VP, cu.CI, cu.CI]
         lib.stream_trace_closest.restype = cu.CI
         lib.stream_trace_closest.argtypes = common + [cu.VP] * 5
-        lib.stream_trace_shadow.restype = cu.CI
-        lib.stream_trace_shadow.argtypes = common + [cu.VP] * 4
+        lib.stream_trace_anyhit.restype = cu.CI
+        lib.stream_trace_anyhit.argtypes = (
+            [cu.VP, cu.VP, cu.VP, cu.CI] + [cu.VP] * 5 + [cu.CI] * 2 + [cu.VP] * 5)
         lib.stream_max_stack.restype = cu.CI
+        lib.stream_anyhit_max_depth.restype = cu.CI
         _state["lib"] = lib
         return lib, seconds
     return _state["lib"], 0.0
 
 
+def _launch_anyhit(ss: StreamScene, o, d, t_max, work=None, warp_max=None):
+    """K5 on the rays: (occ,). With `work` (2 zeroed int64) and `warp_max`
+    (`_warp_slots`: a zeroed int32 per 32 rays, enough for any warp) the counting
+    variant runs and adds the boxes and primitives tested to `work` and
+    each lane's boxes + primitives to its warp's max slot."""
+    lib, _ = library()
+    depth = ss.wide_depth
+    if depth > lib.stream_anyhit_max_depth():
+        raise ValueError(
+            f"wide BVH of depth {depth}; K5's stack holds "
+            f"{lib.stream_anyhit_max_depth()} levels"
+        )
+    nodes = ss.anyhit_nodes
+    if nodes.shape[0] >= 1 << 23:
+        raise ValueError(f"{nodes.shape[0]} wide nodes overflow K5's 23-bit stack entry")
+    if nodes.data_ptr() % 16 or ss.tri_rows.data_ptr() % 16 or ss.sph_rows.data_ptr() % 16:
+        raise ValueError("stream any-hit: node records and leaf rows must be 16-byte aligned")
+    n = o.shape[0]
+    occ = torch.empty((n,), dtype=torch.bool, device=o.device)
+    overflow = torch.zeros((1,), dtype=torch.int32, device=o.device)
+    err = lib.stream_trace_anyhit(
+        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, nodes.data_ptr(),
+        ss.tri_rows.data_ptr(), ss.sph_rows.data_ptr(), ss.inst_i.data_ptr(),
+        ss.inst_f.data_ptr(), ss.inst_i.shape[0], depth, occ.data_ptr(),
+        overflow.data_ptr(),
+        None if work is None else work.data_ptr(),
+        None if warp_max is None else warp_max.data_ptr(), cu.stream_ptr(o))
+    cu.check(lib, "stream", err)
+    if work is None:
+        LAUNCHES["stream_shadow"] += 1
+    if int(overflow.item()) != 0:
+        raise RuntimeError(f"stream any-hit: stack overflow (wide depth bound {depth})")
+    return (occ,)
+
+
 def _launch(ss: StreamScene, o, d, t_max, any_hit: bool, work=None):
+    if any_hit:
+        return _launch_anyhit(ss, o, d, t_max, work,
+                              None if work is None else _warp_slots(o))
     lib, _ = library()
     if ss.thread_stack > lib.stream_max_stack():
         raise ValueError(
@@ -429,9 +494,14 @@ def _launch(ss: StreamScene, o, d, t_max, any_hit: bool, work=None):
         ss.inst_i.data_ptr(), ss.inst_f.data_ptr(), ss.inst_i.shape[0],
     ]
     if work is None:
-        LAUNCHES["stream_shadow" if any_hit else "stream_closest"] += 1
+        LAUNCHES["stream_closest"] += 1
     return launch_walk(lib, "stream", tables, ss.thread_stack, o, d, t_max,
-                       any_hit, work)
+                       False, work)
+
+
+def _warp_slots(o) -> torch.Tensor:
+    return torch.zeros((max(1, -(-o.shape[0] // 32)),), dtype=torch.int32,
+                       device=o.device)
 
 
 def count_work(ss: StreamScene, o, d, t_max, any_hit: bool) -> tuple[int, int]:
@@ -440,6 +510,17 @@ def count_work(ss: StreamScene, o, d, t_max, any_hit: bool) -> tuple[int, int]:
     work = torch.zeros((2,), dtype=torch.int64, device=o.device)
     _launch(ss, o, d, t_max, any_hit, work)
     return int(work[0]), int(work[1])
+
+
+def anyhit_warp_steps(ss: StreamScene, o, d, t_max) -> tuple[int, int]:
+    """K5's SIMD-efficiency count on these CUDA rays, from its counting
+    variant: (the lanes' boxes + primitives tested, summed; each warp's
+    slowest lane's boxes + primitives, summed). The first over 32 x the
+    second is the share of lane slots the walk keeps busy."""
+    work = torch.zeros((2,), dtype=torch.int64, device=o.device)
+    warp_max = _warp_slots(o)
+    _launch_anyhit(ss, o, d, t_max, work, warp_max)
+    return int(work.sum()), int(warp_max.long().sum())
 
 
 def trace_closest_plain(ss: StreamScene, o, d, t_max):

@@ -40,7 +40,7 @@ from ilgpu_raytracing_tpu_torch.ops.cuda.wide import (
     WIDTH,
     _is_identity,
     _stack_bound,
-    _thread_stack_bound,
+    _wide_depth,
 )
 
 TILE_ROWS = 16  # packet = TILE_ROWS * 128 sorted lanes (the JAX default)
@@ -146,7 +146,7 @@ def stream_treelet_from_numpy(tables: dict, sscene: StreamScene) -> StreamTreele
         wide_child=t("wide_child", torch.int32),
         wide_perm=t("wide_perm", torch.int32),
         stack_cap=int(tables["stack_cap"]),
-        thread_stack=_thread_stack_bound(wc_all, [m[1] for m in sscene.meta] + roots),
+        wide_depth=_wide_depth(wc_all, [m[1] for m in sscene.meta] + roots),
     )
     return StreamTreeletScene(
         sscene=ss,

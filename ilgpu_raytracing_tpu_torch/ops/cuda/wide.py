@@ -200,10 +200,8 @@ def _stack_bound(wc_all: np.ndarray, roots, front: int = MAX_FRONT) -> int:
     return best
 
 
-def _thread_stack_bound(wc_all: np.ndarray, roots) -> int:
-    """Per-thread DFS bound: a pop pushes at most 8 children, so along the
-    deepest root-to-leaf chain of `depth` inner wide nodes the stack holds
-    at most 7 pending siblings per level above plus 8: 7 * depth + 1.
+def _wide_depth(wc_all: np.ndarray, roots) -> int:
+    """Most inner wide nodes on any root-to-leaf chain under `roots`.
     Depths come from a post-order walk of each root, so nodes appended
     after their children (the treelet cut's wrapper nodes) count too."""
     depth = np.zeros((wc_all.shape[0],), np.int64)  # 0 = not yet known
@@ -217,7 +215,14 @@ def _thread_stack_bound(wc_all: np.ndarray, roots) -> int:
             elif not depth[wid]:
                 stack.append((wid, True))
                 stack.extend((int(c), False) for c in kids if not depth[c])
-    return 7 * int(max(depth[list(roots)])) + 1
+    return int(max(depth[list(roots)]))
+
+
+def _thread_stack_bound(wc_all: np.ndarray, roots) -> int:
+    """Per-thread DFS bound: a pop pushes at most 8 children, so along the
+    deepest root-to-leaf chain of `depth` inner wide nodes the stack holds
+    at most 7 pending siblings per level above plus 8: 7 * depth + 1."""
+    return 7 * _wide_depth(wc_all, roots) + 1
 
 
 def _leaf_enc(first: int, count: int) -> int:

@@ -7,7 +7,9 @@ the nvcc builds and run through the wrappers' launch path (ctypes argument
 order, stack-overflow flag, the counting variant) on CPU tensors. K1/K2 and
 K4/K5 are held to the plain walks on primary and bounce rays: hit masks and
 occlusion equal, |dt| <= 1e-3, prim agreement > 99.5% (the bar chip_smoke.py
-holds them to on the card). K6, K7 and K8 are held to their own plain
+holds them to on the card). K5, with a tenth of the lanes inactive, also
+equals the plain walk and K4's hit mask at t_max 5 and 1e29 on the small
+terrain and the leaf-64 Cornell box. K6, K7 and K8 are held to their own plain
 versions bit for bit: every output of K6, and t / pp of one treelet round on
 random want masks. This checks the kernels' logic; what nvcc accepts, and
 speed, show only on the card."""
@@ -117,3 +119,30 @@ def test_host_built_k6_k7_k8_equal_their_plain_versions(host, case):
         sts = streamtreelet.prepare_treelets_stream(ks, 8)
         assert host.check_round(f"{case} K8", streamtreelet, sts, bo, bd, 1, 3)
         assert streamtreelet.LAUNCHES["streamtreelet"] >= 2
+
+
+ANYHIT_CASES = {
+    "terrain": (CASES["terrain_stream"][1], terrain.terrain_camera),
+    "cornell_leaf64": (
+        lambda: cornell.build_cornell_scene(tess=6, sphere_tess=(10, 14), blas_leaf_size=64,
+                                            bvh_method="sah", device="cpu")[1],
+        cornell.cornell_camera),
+}
+
+
+@pytest.mark.parametrize("case", list(ANYHIT_CASES))
+def test_host_built_k5_equals_the_plain_walk_and_k4(host, case):
+    """K5's own walk (csrc/stream_anyhit.cuh) with inactive lanes: occlusion
+    equal to the plain walk and to K4's hit mask at t_max 5 and 1e29, on
+    primary and bounce rays."""
+    build, camera = ANYHIT_CASES[case]
+    scene = build()
+    ss = stream.prepare_stream(scene)
+    o, d = host.jittered_rays(camera(48, 32), 48, 32, 1)
+    launches = stream.LAUNCHES["stream_shadow"]
+    assert host.check_anyhit(f"{case} primary", ss, o, d, 4)
+    bo, bd = host.bounce_rays(scene, host.primary_hits(stream, ss, o, d), o, d, 2)
+    assert bo.shape[0] > 100
+    assert host.check_anyhit(f"{case} bounce", ss, bo, bd, 5)
+    # the host build ran, not the plain walk: 2 K5 launches per check
+    assert stream.LAUNCHES["stream_shadow"] - launches == 4

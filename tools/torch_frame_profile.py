@@ -25,7 +25,7 @@ import time
 import torch
 
 FRAMES = 3
-OWN_KERNELS = ("trace_kernel", "hist_kernel", "scan_kernel", "rank_kernel")
+OWN_KERNELS = ("trace_kernel", "anyhit_kernel", "hist_kernel", "scan_kernel", "rank_kernel")
 
 
 def main() -> int:
