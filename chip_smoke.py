@@ -56,12 +56,16 @@ Phases:
      held to the bar of tests/test_stream_kernel.py (hit masks equal, no
      |dt| > 1e-3 where both hit, prim agreement > 99.5%, K5 equal at t_max
      5 and 1e29); K5 equal to K4's hit mask at t_max 5 and 1e29 on all
-     901,120 primary and 1,802,240 bounce lanes; K4/K5 timed on the full
-     populations; K5's SIMD-efficiency count; ptxas's report of
-     csrc/stream_trace.cu;
+     901,120 primary and 1,802,240 bounce lanes; K4 timed on the 901,120
+     primary and the full bounce lanes and K5 on the bounce lanes, each
+     with the boxes and primitives its counting variant tallies; K5's
+     SIMD-efficiency count; ptxas's report of csrc/stream_trace.cu; K4
+     called with a stack cap of 1 on the terrain's bounce lanes must fail
+     the walk's device-side assert (in a child process);
  13. K8: `trace_closest_treelet_stream_packed` on the terrain's 1,802,240
      treelet-sorted bounce lanes equal to K4 (t and pp) on every lane; one
      K8 round equal to its plain version on the first 65,536 lanes; timed;
+     ptxas's report of csrc/streamtreelet_trace.cu;
  14. a 64x64 small-terrain (4,096 triangles) frame pair through the
      integrator with a StreamScene, kernels on the card vs plain on the
      CPU, held to the golden-image bar;
@@ -107,6 +111,14 @@ FP32_OPS_PER_S = 67e12
 BOX_OPS = 25
 QBOX_OPS = BOX_OPS + 12
 PRIM_OPS = 54
+# (boxes, primitives) that the K4/K8 walk before the node-group redesign
+# (StreamWalker, commit de09dde) tested on this script's terrain lanes, by
+# tools/torch_k4k8_bench.py on an H100. The bound is printed from them beside
+# the bound from this walk's own counts: a walk that tests fewer boxes must
+# not be credited with a lower bound, nor one that tests more with a higher.
+PRIOR_K4_K8_WORK = dict(k4_primary=(51_163_836, 58_970_760),
+                        k4_bounce=(89_112_975, 127_319_096),
+                        k8_round=(18_110_707, 13_401_456))
 
 
 def log(*a):
@@ -748,15 +760,18 @@ def phase_k7(dev, results, bench):
 
 def phase_k8(dev, results, ss, lanes):
     """K8 through ops/treelet on the terrain's treelet-sorted bounce lanes."""
+    from ilgpu_raytracing_tpu_torch.ops import cuda as cu
     from ilgpu_raytracing_tpu_torch.ops import treelet as ops_treelet
     from ilgpu_raytracing_tpu_torch.ops.cuda import stream, streamtreelet
 
+    for line in cu.ptxas_info("streamtreelet_trace"):
+        log(f"ptxas streamtreelet_trace.cu: {line}")
     bo, bd, act = lanes["bo"], lanes["bd"], lanes["act"]
     t0 = time.monotonic()
     sts = streamtreelet.prepare_treelets_stream(ss, 32)
     log(f"K8 treelets: {sts.n_treelets}, +{(sts.sscene.wide_child.numel() - ss.wide_child.numel()) // 8} "
-        f"wrapper nodes, per-thread stack bound {sts.sscene.thread_stack}, prep "
-        f"{time.monotonic() - t0:.2f} s")
+        f"wrapper nodes, wide depth (node-group stack entries) {sts.sscene.wide_depth}, "
+        f"prep {time.monotonic() - t0:.2f} s")
     t_ref, pp_ref = stream.trace_closest_stream_packed(ss, bo, bd, active=act)
     nb = bo.shape[0]
     _reset_counts()
@@ -782,9 +797,11 @@ def phase_k8(dev, results, ss, lanes):
     ms = cuda_ms(lambda: streamtreelet.run_treelet_stream_trace(
         sts, mask, o_s, d_s, tm, tile_rows), 10)
     work = streamtreelet.count_work(sts, mask, o_s, d_s, tm, tile_rows)
-    log(f"K8 first round on {nb} lanes: kernel {ms:.4f} ms, {work[0]} boxes, "
-        f"{work[1]} primitives")
     tables = streamtreelet.treelet_stream_arrays(sts) + (mask,)
+    log(f"K8 first round on {nb} lanes: kernel {ms:.4f} ms, {work[0]} boxes, "
+        f"{work[1]} primitives, bound {trace_bound(nb, work, False, QBOX_OPS, tables)}; "
+        f"from the earlier walk's counts {PRIOR_K4_K8_WORK['k8_round']}: "
+        f"{trace_bound(nb, PRIOR_K4_K8_WORK['k8_round'], False, QBOX_OPS, tables)}")
     results["streamtreelet"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                     **trace_bound(nb, work, False, QBOX_OPS, tables),
                                     library_ms=None)
@@ -809,7 +826,7 @@ def phase_terrain_prep(dev):
     log(f"terrain: {scene.n_tris} tris, BVH build {t_build:.3f} s, prepare_stream "
         f"{t_prep:.3f} s; {ss.wide_child.numel() // 8} wide nodes, {n_rows} leaf rows "
         f"({ss.tri_rows.numel() * 4} bytes of tri_rows), most rows in a leaf "
-        f"{ss.rows_per_leaf}, per-thread stack bound {ss.thread_stack}")
+        f"{ss.rows_per_leaf}, wide depth (node-group stack entries) {ss.wide_depth}")
     return scene, ss
 
 
@@ -873,6 +890,50 @@ def _k5_equals_k4(ss, o, d, active, label):
             f"mask on all {o.shape[0]} lanes")
 
 
+K4_OVERFLOW_CHILD = """
+import sys, torch
+from ilgpu_raytracing_tpu_torch.ops import cuda as cu
+from ilgpu_raytracing_tpu_torch.ops.cuda import stream
+x = torch.load(sys.argv[1], map_location="cuda")
+lib, _ = stream.library()
+n = x["o"].shape[0]
+t = torch.empty(n, device="cuda")
+pp = torch.empty(n, dtype=torch.int32, device="cuda")
+err = lib.stream_trace_closest(
+    x["o"].data_ptr(), x["d"].data_ptr(), x["tm"].data_ptr(), n, x["nodes"].data_ptr(),
+    x["perm"].data_ptr(), x["tri"].data_ptr(), x["sph"].data_ptr(), x["inst_i"].data_ptr(),
+    x["inst_f"].data_ptr(), x["inst_i"].shape[0], 1, t.data_ptr(), pp.data_ptr(), None,
+    cu.stream_ptr(t))
+cu.check(lib, "stream", err)
+torch.cuda.synchronize()
+print("K4 returned", int((pp >= 0).sum()), "hits")
+"""
+
+
+def _k4_overflow_fails(ss, o, d, t_max) -> str:
+    """K4's library called with a stack cap of 1 (the terrain's walks need up
+    to wide depth - 1 entries) on the given lanes, in a child process: the
+    walk's device-side assert must fail the synchronizing call. Returns the
+    first line of the error that names the assert."""
+    from ilgpu_raytracing_tpu_torch.utils.build import BUILD_DIR
+
+    path = os.path.join(BUILD_DIR, "k4_overflow_case.pt")
+    torch.save(dict(nodes=ss.anyhit_nodes, perm=ss.wide_perm, tri=ss.tri_rows,
+                    sph=ss.sph_rows, inst_i=ss.inst_i, inst_f=ss.inst_f, o=o, d=d,
+                    tm=t_max), path)
+    try:
+        proc = subprocess.run([sys.executable, "-c", K4_OVERFLOW_CHILD, path],
+                              capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+    finally:
+        os.unlink(path)
+    said = [ln for ln in proc.stderr.splitlines() if "assert" in ln.lower()]
+    check(proc.returncode != 0 and bool(said),
+          f"K4 passed its stack bound without an error: rc {proc.returncode}, "
+          f"{proc.stdout[-300:]} {proc.stderr[-500:]}")
+    return said[0].strip()
+
+
 def phase_k4_k5(dev, results, scene, ss):
     from ilgpu_raytracing_tpu_torch.config import RenderConfig
     from ilgpu_raytracing_tpu_torch.models.terrain import terrain_camera
@@ -892,7 +953,13 @@ def phase_k4_k5(dev, results, scene, ss):
     k4_err, k5_err = _stream_bar(ss, _strided(o, n, SUBSET), _strided(d, n, SUBSET),
                                  "primary")
     k4_primary_ms = cuda_ms(lambda: stream.trace_closest_stream_packed(ss, o, d), 10)
-    log(f"K4 primary {n} lanes: kernel {k4_primary_ms:.4f} ms")
+    tables = (ss.anyhit_nodes, ss.wide_perm, ss.tri_rows, ss.sph_rows, ss.inst_i,
+              ss.inst_f)
+    wp = stream.count_work(ss, o, d, torch.full((n,), T_INF, device=dev), any_hit=False)
+    log(f"K4 primary {n} lanes: kernel {k4_primary_ms:.4f} ms; {wp[0]} boxes, {wp[1]} "
+        f"primitives, bound {trace_bound(n, wp, False, QBOX_OPS, tables)}; from the "
+        f"earlier walk's counts {PRIOR_K4_K8_WORK['k4_primary']}: "
+        f"{trace_bound(n, PRIOR_K4_K8_WORK['k4_primary'], False, QBOX_OPS, tables)}")
 
     hit = stream.trace_closest_stream(ss, o, d)
     bo, bd, act, n_alive = _bounce_rays(scene, hit, o, d, 11, (None, ss.sortkey_bounds))
@@ -911,18 +978,22 @@ def phase_k4_k5(dev, results, scene, ss):
         f"{k4_plain:.4f} ms")
     log(f"K5 bounce {nb} lanes ({n_alive} live): kernel {k5_ms:.4f} ms, plain "
         f"{k5_plain:.4f} ms (plain timings {time.monotonic() - t0:.1f} s)")
-    tables = (ss.wide_frame, ss.wide_qbounds, ss.wide_child, ss.wide_perm,
-              ss.tri_rows, ss.sph_rows, ss.inst_i, ss.inst_f)
     k5_tables = (ss.anyhit_nodes, ss.tri_rows, ss.sph_rows, ss.inst_i, ss.inst_f)
     w4 = stream.count_work(ss, bo, bd, tmb, any_hit=False)
     w5 = stream.count_work(ss, bo, bd, tms, any_hit=True)
     steps, warp_max = stream.anyhit_warp_steps(ss, bo, bd, tms)
-    log(f"K4 bounce work: {w4[0]} boxes, {w4[1]} primitives; K5: {w5[0]} boxes, "
+    log(f"K4 bounce work: {w4[0]} boxes, {w4[1]} primitives, bound "
+        f"{trace_bound(nb, w4, False, QBOX_OPS, tables)}; from the earlier walk's "
+        f"counts {PRIOR_K4_K8_WORK['k4_bounce']}: "
+        f"{trace_bound(nb, PRIOR_K4_K8_WORK['k4_bounce'], False, QBOX_OPS, tables)}; "
+        f"K5: {w5[0]} boxes, "
         f"{w5[1]} primitives; K5 SIMD efficiency (lanes' boxes + primitives over 32 x "
         f"each warp's slowest lane's): {steps} / (32 x {warp_max}) = "
         f"{steps / (32.0 * warp_max):.4f}")
     _k5_equals_k4(ss, o, d, None, "primary")
     _k5_equals_k4(ss, bo, bd, act, "bounce (treelet-sorted)")
+    log(f"K4 with a stack cap of 1 on the terrain's bounce lanes: the child process "
+        f"failed: {_k4_overflow_fails(ss, bo, bd, tmb)}")
     results["stream_closest"] = dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain,
                                      **trace_bound(nb, w4, False, QBOX_OPS, tables),
                                      library_ms=None)

@@ -9,10 +9,9 @@
 //   so a thread needs at most (wide depth - 1) entries, held in shared
 //   memory (depth x 128 threads x 4 bytes per block, 6 KB on the 1M-
 //   triangle terrain) instead of a 1,024-byte local array; the host proves
-//   the depth, and a deeper walk sets the overflow flag;
-// - a node is one 128-byte record (the frame, the 16 box words, the 8 child
-//   words; ops/cuda/stream.pack_anyhit_nodes), read with 16-byte loads from
-//   one cache line, where StreamWalker reads four arrays;
+//   the depth, and a deeper walk fails a device-side assert;
+// - a node is one 128-byte record (stream_nodes.cuh), read with 16-byte
+//   loads from one cache line;
 // - a lane visits nodes until it has a hit leaf to test, then tests one
 //   leaf, so the lanes of a warp test leaves together (the while-while loop
 //   of Aila & Laine, HPG 2009, without a warp vote) where a walk that tests
@@ -26,12 +25,10 @@
 // the plain walk's and K4's hit mask at the same t_max.
 #pragma once
 
-#include "stream_walker.cuh"  // the leaf encoding (ENC_BASE) of the quantized tables
+#include "stream_nodes.cuh"
 
 namespace trace {
 
-constexpr int NODE_INT4 = 8;   // 16-byte words per packed node record
-constexpr int MAX_DEPTH = 36;  // stack entries per thread (wide depth <= 36)
 // Blocks of THREADS an SM must hold (__launch_bounds__): caps a thread at
 // 65,536 / (128 x 10) = 51 registers. On an H100, 10 and 8 (56 registers)
 // timed within each other's run-to-run spread on the bounce lanes of the
@@ -45,22 +42,13 @@ struct AnyHitWalker {
   int depth_cap;                   // the host's bound on the wide depth
 };
 
-// Word j (0..7) of the pair of 16-byte words (a, b), by selects: a dynamic
-// index into a register array would go through local memory.
-__device__ __forceinline__ int word_of(const int4& a, const int4& b, int j) {
-  const int4 v = j < 4 ? a : b;
-  const int k = j & 3;
-  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
-}
-
 // True when some primitive of the BLAS under `root` accepts t in (T_EPS,
 // t_limit). `stack` is this thread's column of the block's shared stack
-// (entry e at stack[e * THREADS]); sets `overflow` and returns false when
-// the walk would need more than depth_cap entries.
+// (entry e at stack[e * THREADS]); a walk that would need more than
+// depth_cap entries fails an assert.
 template <bool COUNT>
 __device__ bool anyhit_walk(const AnyHitWalker& wk, const Ray& r, int root,
-                            bool is_tri, float t_limit, int* stack,
-                            bool& overflow, Work& work) {
+                            bool is_tri, float t_limit, int* stack, Work& work) {
   const float* __restrict__ rows = is_tri ? wk.tri : wk.sph;
   const int* __restrict__ words = reinterpret_cast<const int*>(wk.nodes);
   float t_unused = t_limit;
@@ -73,29 +61,15 @@ __device__ bool anyhit_walk(const AnyHitWalker& wk, const Ray& r, int root,
     // visit nodes until this lane has leaves to test or has none left
     while (node >= 0 && leaves == 0) {
       const int4* __restrict__ rec = wk.nodes + static_cast<size_t>(node) * NODE_INT4;
-      const int4 f0 = __ldg(rec), f1 = __ldg(rec + 1);
+      const Frame f = frame_of(__ldg(rec), __ldg(rec + 1));
       const int4 c0 = __ldg(rec + 6), c1 = __ldg(rec + 7);
-      const float lox = __int_as_float(f0.x), loy = __int_as_float(f0.y);
-      const float loz = __int_as_float(f0.z), sx = __int_as_float(f0.w);
-      const float sy = __int_as_float(f1.x), sz = __int_as_float(f1.y);
       unsigned inner = 0;
 #pragma unroll
       for (int c = 0; c < WIDTH; ++c) {
         const int child = word_of(c0, c1, c);
         if (child == EMPTY) continue;
         if (COUNT) ++work.boxes;
-        // one 16-byte word holds the boxes of children 2p and 2p + 1;
-        // dequantize lo + float(q) * scale, unfused (--fmad=false)
-        const int4 q = __ldg(rec + 2 + (c >> 1));
-        const unsigned w0 = static_cast<unsigned>((c & 1) ? q.z : q.x);
-        const unsigned w1 = static_cast<unsigned>((c & 1) ? q.w : q.y);
-        const float x0 = lox + static_cast<float>(w0 & 255u) * sx;
-        const float y0 = loy + static_cast<float>((w0 >> 8) & 255u) * sy;
-        const float z0 = loz + static_cast<float>((w0 >> 16) & 255u) * sz;
-        const float x1 = lox + static_cast<float>((w0 >> 24) & 255u) * sx;
-        const float y1 = loy + static_cast<float>(w1 & 255u) * sy;
-        const float z1 = loz + static_cast<float>((w1 >> 8) & 255u) * sz;
-        if (!slab6(x0, y0, z0, x1, y1, z1, r, t_limit)) continue;
+        if (!qbox_hit(f, __ldg(rec + 2 + (c >> 1)), c, r, t_limit)) continue;
         if (child >= 0) {
           inner |= 1u << c;
         } else {
@@ -107,8 +81,8 @@ __device__ bool anyhit_walk(const AnyHitWalker& wk, const Ray& r, int root,
         const int c = __ffs(static_cast<int>(inner)) - 1;
         inner &= inner - 1u;
         if (inner != 0) {
-          if (sp >= wk.depth_cap) {
-            overflow = true;
+          if (sp >= wk.depth_cap) {  // the host's bound (the wide depth) was wrong
+            assert(false && "stream any-hit walk: node-group stack overflow");
             return false;
           }
           stack[sp++ * THREADS] = (node << 8) | static_cast<int>(inner);
@@ -120,7 +94,7 @@ __device__ bool anyhit_walk(const AnyHitWalker& wk, const Ray& r, int root,
         const int c = __ffs(static_cast<int>(mask)) - 1;
         mask &= mask - 1u;
         if (mask != 0) stack[sp++ * THREADS] = (e & ~255) | static_cast<int>(mask);
-        node = __ldg(words + static_cast<size_t>(e >> 8) * (NODE_INT4 * 4) + 24 + c);
+        node = __ldg(words + static_cast<size_t>(e >> 8) * (NODE_INT4 * 4) + CHILD_WORD + c);
       } else {
         node = -1;
       }
@@ -130,7 +104,7 @@ __device__ bool anyhit_walk(const AnyHitWalker& wk, const Ray& r, int root,
     const int c = __ffs(static_cast<int>(leaves)) - 1;
     leaves &= leaves - 1u;
     const int enc =
-        -__ldg(words + static_cast<size_t>(lnode) * (NODE_INT4 * 4) + 24 + c) - 2;
+        -__ldg(words + static_cast<size_t>(lnode) * (NODE_INT4 * 4) + CHILD_WORD + c) - 2;
     const float* __restrict__ row = rows + static_cast<size_t>(enc / ENC_BASE) * ROW;
     for (int k = enc % ENC_BASE; k > 0; --k, row += ROW) {
       if (test_row<true, COUNT>(row, ROW_SLOTS, is_tri, r, 0, t_limit, t_unused,
@@ -152,13 +126,9 @@ anyhit_kernel(const float* __restrict__ o, const float* __restrict__ d,
               const float* __restrict__ tmax, int n, AnyHitWalker wk,
               const int* __restrict__ inst_i, const float* __restrict__ inst_f,
               int n_inst, bool* __restrict__ occ_out,
-              int* __restrict__ overflow, unsigned long long* __restrict__ work_out,
+              unsigned long long* __restrict__ work_out,
               unsigned* __restrict__ warp_max) {
-#ifdef __CUDACC__
-  extern __shared__ int stack_mem[];  // depth_cap x THREADS entries
-#else
-  static int stack_mem[MAX_DEPTH * THREADS];  // the host build (host_check.py)
-#endif
+  TRACE_SHARED_STACK(stack_mem);  // depth_cap x THREADS entries
   const int i = static_cast<int>(blockIdx.x * THREADS + threadIdx.x);
   if (i >= n) return;
   int* stack = stack_mem + threadIdx.x;
@@ -166,7 +136,6 @@ anyhit_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const float t_limit = tmax[i];
   Work work;
   bool occ = false;
-  bool over = false;
   for (int k = 0; k < n_inst && t_limit > 0.0f && !occ; ++k) {
     const int* ii = inst_i + k * INST_I;
     const float* ff = inst_f + k * INST_F;
@@ -174,11 +143,7 @@ anyhit_kernel(const float* __restrict__ o, const float* __restrict__ d,
     if (!slab(ff + 12, w, t_limit)) continue;
     const Ray r = ii[3] ? w : transform_ray(ff, w);
     occ = anyhit_walk<COUNT>(wk, r, ii[1], ii[0] == BLAS_TRI_MESH, t_limit, stack,
-                             over, work);
-    if (over) {
-      atomicExch(overflow, 1);
-      break;
-    }
+                             work);
   }
   occ_out[i] = occ;
   if (COUNT) {
@@ -193,7 +158,6 @@ anyhit_kernel(const float* __restrict__ o, const float* __restrict__ d,
 inline int launch_anyhit(const float* o, const float* d, const float* tmax, int n,
                          const AnyHitWalker& wk, const int* inst_i,
                          const float* inst_f, int n_inst, bool* occ_out,
-                         int* overflow,
                          unsigned long long* work_out, unsigned* warp_max,
                          void* stream) {
   const int blocks = (n + THREADS - 1) / THREADS;
@@ -201,12 +165,10 @@ inline int launch_anyhit(const float* o, const float* d, const float* tmax, int 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (blocks > 0 && work_out != nullptr) {
     anyhit_kernel<true><<<blocks, THREADS, smem, s>>>(
-        o, d, tmax, n, wk, inst_i, inst_f, n_inst, occ_out, overflow, work_out,
-        warp_max);
+        o, d, tmax, n, wk, inst_i, inst_f, n_inst, occ_out, work_out, warp_max);
   } else if (blocks > 0) {
     anyhit_kernel<false><<<blocks, THREADS, smem, s>>>(
-        o, d, tmax, n, wk, inst_i, inst_f, n_inst, occ_out, overflow, nullptr,
-        nullptr);
+        o, d, tmax, n, wk, inst_i, inst_f, n_inst, occ_out, nullptr, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

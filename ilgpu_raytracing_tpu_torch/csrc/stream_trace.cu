@@ -27,23 +27,26 @@
 // What this design does about it: the TPU kernel's packet shape (2048-lane
 // tiles behind one scalar SMEM stack, FRONT-node frontiers, subtile want
 // masks, a double-buffered 8 KB DMA per leaf) answers TPU constraints and is
-// not carried over. As in K1, K4 keeps a DFS stack per thread in local
-// memory (bound 7 * wide depth + 1 from the host; overflow sets a flag and
-// the wrapper raises), orders children by its own octant through wide_perm,
-// and tests hit leaves near-first so t_best tightens early. A triangle slot
-// is 48 bytes, read as three 16-byte loads. The sort key of the bounce
-// batches (destination treelet, ops/sort.py) groups rays that fetch the
-// same leaves. Warp-cooperative leaf staging in shared memory (the DMA idea
-// redone for Hopper) is later work.
+// not carried over. K4 walks each ray on its own thread with the closest-hit
+// walk of stream_closest.cuh (shared with K8): one packed 128-byte record
+// and one order word per node, node groups on a stack in shared memory
+// bounded by the wide depth, children in the ray's own octant order, and
+// lanes that visit nodes until each holds hit leaves and then test one leaf
+// together, near-first, so t_best tightens early and prunes what follows. A
+// triangle slot is 48 bytes, read as three 16-byte loads. The sort key of
+// the bounce batches (destination treelet, ops/sort.py) groups rays that
+// fetch the same leaves. Warp-cooperative leaf staging in shared memory
+// (the DMA idea redone for Hopper) is later work.
 //
 // K5 has a walk of its own (stream_anyhit.cuh): occlusion needs no order,
-// so it drops the octant order, the far-first pushes and the 1 KB stack for
-// node-group entries in shared memory, reads each node as one packed
-// 128-byte record, and lets a lane visit nodes until it has a leaf to test,
-// so that the lanes of a warp test leaves together.
+// so it visits children in slot order and reads no order word.
+//
+// Each walk's stack bound is proven on the host (the wide depth); a walk
+// past it fails a device-side assert instead of setting a flag the wrapper
+// would have to read back.
 
 #include "stream_anyhit.cuh"
-#include "stream_walker.cuh"
+#include "stream_closest.cuh"
 
 namespace {
 
@@ -51,48 +54,45 @@ constexpr int SPP_PRIM_BITS = 23;
 
 }  // namespace
 
-using trace::StreamWalker;
-
 extern "C" {
 
 const char* stream_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int stream_max_stack() { return trace::MAX_STACK; }
+// The most node-group stack entries a thread of K4 or K5 may use.
+int stream_max_depth() { return trace::MAX_DEPTH; }
 
-// K4: closest hit. t_out/pp_out (n,), overflow (1,) zeroed by the caller;
-// work (2,) zeroed, or null (see launch_trace).
+// K4: closest hit. nodes (W, 32) int32, 16-byte aligned
+// (ops/cuda/stream.pack_anyhit_nodes); perm (W*8) the per-octant child
+// order; depth_cap the wide depth; t_out/pp_out (n,); work (2,) zeroed, or
+// null (see launch_trace).
 int stream_trace_closest(const float* o, const float* d, const float* tmax, int n,
-                         const float* wf, const int* wq, const int* wc,
-                         const int* wp, const float* tri_rows,
+                         const int* nodes, const int* perm, const float* tri_rows,
                          const float* sph_rows, const int* inst_i,
-                         const float* inst_f, int n_inst, int stack_cap,
-                         float* t_out, int* pp_out, int* overflow,
-                         unsigned long long* work, void* stream) {
-  const StreamWalker wk{wf, wq, wc, wp, tri_rows, sph_rows, stack_cap};
+                         const float* inst_f, int n_inst, int depth_cap,
+                         float* t_out, int* pp_out, unsigned long long* work,
+                         void* stream) {
+  const trace::ClosestWalker wk{reinterpret_cast<const int4*>(nodes), perm, tri_rows,
+                                sph_rows, depth_cap};
   return trace::launch_trace<false>(o, d, tmax, n, wk, inst_i, inst_f, n_inst,
-                                    SPP_PRIM_BITS, t_out, pp_out, nullptr,
-                                    overflow, work, stream);
+                                    SPP_PRIM_BITS, t_out, pp_out, nullptr, work,
+                                    stream);
 }
 
-int stream_anyhit_max_depth() { return trace::MAX_DEPTH; }
-
-// K5: any-hit occlusion within (T_EPS, tmax). nodes (W, 32) int32, 16-byte
-// aligned (ops/cuda/stream.pack_anyhit_nodes); depth_cap the wide depth;
-// occ_out (n,) bool; overflow (1,) zeroed by the caller; work (2,) and
-// warp_max (ceil(n / 32),) zeroed for the counting variant, or both null.
+// K5: any-hit occlusion within (T_EPS, tmax). nodes and depth_cap as K4's;
+// occ_out (n,) bool; work (2,) and warp_max (ceil(n / 32),) zeroed for the
+// counting variant, or both null.
 int stream_trace_anyhit(const float* o, const float* d, const float* tmax, int n,
                         const int* nodes, const float* tri_rows,
                         const float* sph_rows, const int* inst_i,
                         const float* inst_f, int n_inst, int depth_cap,
-                        bool* occ_out, int* overflow,
-                        unsigned long long* work, unsigned* warp_max,
+                        bool* occ_out, unsigned long long* work, unsigned* warp_max,
                         void* stream) {
   const trace::AnyHitWalker wk{reinterpret_cast<const int4*>(nodes), tri_rows,
                                sph_rows, depth_cap};
   return trace::launch_anyhit(o, d, tmax, n, wk, inst_i, inst_f, n_inst, occ_out,
-                              overflow, work, warp_max, stream);
+                              work, warp_max, stream);
 }
 
 }  // extern "C"

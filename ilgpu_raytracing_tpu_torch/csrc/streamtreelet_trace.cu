@@ -13,17 +13,19 @@
 // As on the TPU, only identity instance transforms are taken (the host prep
 // refuses others), so the world ray is the object ray.
 //
-// Each treelet walk is StreamWalker::walk (stream_walker.cuh), the walk of
-// K4; the loop over the mask is treelet_kernel in trace_common.cuh, shared
-// with K7.
+// Each treelet walk is the closest-hit walk of K4 (ClosestWalker,
+// stream_closest.cuh) over the cut's extended tables; the loop over the mask
+// is treelet_kernel in trace_common.cuh, shared with K7. Both walks keep the
+// plain walk's test order, so the rounds equal K4 bit for bit.
 //
 // What bounds it on an H100: as K4, leaf fetches from HBM (the 1M-triangle
 // terrain's 69 MB of leaf rows exceed the 50 MB L2) and the Moller-Trumbore
 // tests of up to 128 triangles a leaf. The TPU kernel's double-buffered DMA
 // of leaf rows is not carried over; each thread reads its own leaf rows as
-// 16-byte loads. Leaf staging shared by a warp is later work.
+// 16-byte loads, and the lanes of a warp test leaves together. Leaf staging
+// shared by a warp is later work.
 
-#include "stream_walker.cuh"
+#include "stream_closest.cuh"
 
 namespace {
 
@@ -37,21 +39,22 @@ const char* streamtreelet_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int streamtreelet_max_stack() { return trace::MAX_STACK; }
+int streamtreelet_max_depth() { return trace::MAX_DEPTH; }
 
-// One K8 round; arguments as treelet_trace, over the streaming tables.
+// One K8 round; arguments as treelet_trace, over the node records and
+// order words of the extended streaming tables (as K4's), with depth_cap
+// the extended tables' wide depth.
 int streamtreelet_trace(const float* o, const float* d, const float* tmax, int n,
-                        const float* wf, const int* wq, const int* wc,
-                        const int* wp, const float* tri_rows,
-                        const float* sph_rows, int stack_cap, const int* mask,
+                        const int* nodes, const int* perm, const float* tri_rows,
+                        const float* sph_rows, int depth_cap, const int* mask,
                         int lanes_per_packet, const int* t_root,
                         const int* t_inst, int n_treelets, float* t_out,
-                        int* pp_out, int* overflow, unsigned long long* work,
-                        void* stream) {
-  const trace::StreamWalker wk{wf, wq, wc, wp, tri_rows, sph_rows, stack_cap};
+                        int* pp_out, unsigned long long* work, void* stream) {
+  const trace::ClosestWalker wk{reinterpret_cast<const int4*>(nodes), perm, tri_rows,
+                                sph_rows, depth_cap};
   return trace::launch_treelets(o, d, tmax, n, wk, mask, lanes_per_packet, t_root,
                                 t_inst, nullptr, n_treelets, 1, SPP_PRIM_BITS,
-                                t_out, pp_out, overflow, work, stream);
+                                t_out, pp_out, work, stream);
 }
 
 }  // extern "C"

@@ -7,12 +7,20 @@
 // (world-AABB entry, world->object transform, packed closest-hit record) and
 // the per-lane loop over a treelet want mask.
 //
-// Each 8-wide kernel supplies a walker (wide_walker.cuh, stream_walker.cuh),
+// Each 8-wide kernel supplies a walker (wide_walker.cuh, stream_closest.cuh),
 // a struct with
-//   template <bool ANY_HIT, bool COUNT> __device__ bool walk(const Ray&,
+//   template <bool ANY_HIT, bool COUNT> __device__ void walk(const Ray&,
 //       int root, bool is_tri, int inst_bits, float t_limit, float& t_best,
-//       int& pp, bool& occ, Work& work) const;
-// that walks one 8-wide BVH from `root` and returns false on stack overflow.
+//       int& pp, bool& occ, Work& work, int* stack) const;
+//   size_t smem_bytes() const;
+// that walks one 8-wide BVH from `root`. `stack` is the thread's column of
+// the block's dynamic shared memory (entry e at stack[e * THREADS]), of
+// smem_bytes() a block; a walker that asks for none ignores it.
+//
+// The host proves every stack bound (the wide depth of the tables). A walk
+// that would pass it fails a device-side assert, so a launch never reads a
+// flag back: the next synchronizing call raises, as PyTorch's index kernels
+// do.
 //
 // COUNT = true builds the counting variant: the same walk, which also tallies
 // the boxes and primitives it tests and adds them to a launch-wide total.
@@ -24,6 +32,7 @@
 
 #pragma once
 
+#include <cassert>
 #include <cuda_runtime.h>
 
 namespace trace {
@@ -43,6 +52,16 @@ constexpr int INST_I = 4;   // kind, wide root, inst_id, is_identity
 constexpr int INST_F = 18;  // w2o (12), world bounds (6)
 constexpr int EMPTY = -1;
 constexpr int THREADS = 128;
+constexpr int MAX_DEPTH = 36;  // node-group stack entries a thread may use
+
+// The block's dynamic shared memory as int, for a walk's node-group stack.
+// The host build (ops/cuda/host_check.py) runs one thread at a time and
+// takes a static array of the most any launch asks for.
+#ifdef __CUDACC__
+#define TRACE_SHARED_STACK(name) extern __shared__ int name[]
+#else
+#define TRACE_SHARED_STACK(name) static int name[MAX_DEPTH * THREADS]
+#endif
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
@@ -212,8 +231,7 @@ __device__ void trace_ray(const Walker& wk, int i, const float* __restrict__ o,
                           const float* __restrict__ inst_f, int n_inst,
                           int prim_bits, float* __restrict__ t_out,
                           int* __restrict__ pp_out, bool* __restrict__ occ_out,
-                          int* __restrict__ overflow,
-                          unsigned long long* __restrict__ work_out) {
+                          unsigned long long* __restrict__ work_out, int* stack) {
   Work work;
   const Ray w = load_ray(o, d, i);
   const float t_limit = tmax[i];
@@ -229,11 +247,8 @@ __device__ void trace_ray(const Walker& wk, int i, const float* __restrict__ o,
     const bool is_tri = ii[0] == BLAS_TRI_MESH;
     const int inst_bits = (ii[2] * 4 + (is_tri ? KIND_TRI : KIND_SPHERE))
                           << prim_bits;
-    if (!wk.template walk<ANY_HIT, COUNT>(r, ii[1], is_tri, inst_bits, t_limit,
-                                          t_best, pp, occ, work)) {
-      atomicExch(overflow, 1);
-      break;
-    }
+    wk.template walk<ANY_HIT, COUNT>(r, ii[1], is_tri, inst_bits, t_limit, t_best,
+                                     pp, occ, work, stack);
   }
   if (ANY_HIT) {
     occ_out[i] = occ;
@@ -257,13 +272,13 @@ __global__ void trace_kernel(const float* __restrict__ o,
                              int prim_bits, float* __restrict__ t_out,
                              int* __restrict__ pp_out,
                              bool* __restrict__ occ_out,
-                             int* __restrict__ overflow,
                              unsigned long long* __restrict__ work_out) {
+  TRACE_SHARED_STACK(stack_mem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   trace_ray<ANY_HIT, COUNT>(wk, i, o, d, tmax, inst_i, inst_f, n_inst,
-                            prim_bits, t_out, pp_out, occ_out, overflow,
-                            work_out);
+                            prim_bits, t_out, pp_out, occ_out, work_out,
+                            stack_mem + threadIdx.x);
 }
 
 // Launch on `stream`: the counting variant when work_out (2 zeroed u64:
@@ -273,18 +288,18 @@ template <bool ANY_HIT, class Walker>
 int launch_trace(const float* o, const float* d, const float* tmax, int n,
                  const Walker& wk, const int* inst_i, const float* inst_f,
                  int n_inst, int prim_bits, float* t_out, int* pp_out,
-                 bool* occ_out, int* overflow, unsigned long long* work_out,
-                 void* stream) {
+                 bool* occ_out, unsigned long long* work_out, void* stream) {
   const int blocks = (n + THREADS - 1) / THREADS;
+  const size_t smem = wk.smem_bytes();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (blocks > 0 && work_out != nullptr) {
-    trace_kernel<ANY_HIT, true, Walker><<<blocks, THREADS, 0, s>>>(
+    trace_kernel<ANY_HIT, true, Walker><<<blocks, THREADS, smem, s>>>(
         o, d, tmax, n, wk, inst_i, inst_f, n_inst, prim_bits, t_out, pp_out,
-        occ_out, overflow, work_out);
+        occ_out, work_out);
   } else if (blocks > 0) {
-    trace_kernel<ANY_HIT, false, Walker><<<blocks, THREADS, 0, s>>>(
+    trace_kernel<ANY_HIT, false, Walker><<<blocks, THREADS, smem, s>>>(
         o, d, tmax, n, wk, inst_i, inst_f, n_inst, prim_bits, t_out, pp_out,
-        occ_out, overflow, nullptr);
+        occ_out, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -308,8 +323,8 @@ __global__ void treelet_kernel(const float* __restrict__ o,
                                int n_treelets, int all_identity, int prim_bits,
                                float* __restrict__ t_out,
                                int* __restrict__ pp_out,
-                               int* __restrict__ overflow,
                                unsigned long long* __restrict__ work_out) {
+  TRACE_SHARED_STACK(stack_mem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Work work;
@@ -324,12 +339,9 @@ __global__ void treelet_kernel(const float* __restrict__ o,
     if (!((want >> k) & 1u) || t_root[k] < 0) continue;
     const int inst_enc = t_inst[k];
     const Ray r = all_identity ? w : transform_ray(t_w2o + 12 * k, w);
-    if (!wk.template walk<false, COUNT>(r, t_root[k], (inst_enc & 3) == KIND_TRI,
-                                        inst_enc << prim_bits, t_limit, t_best,
-                                        pp, occ, work)) {
-      atomicExch(overflow, 1);
-      break;
-    }
+    wk.template walk<false, COUNT>(r, t_root[k], (inst_enc & 3) == KIND_TRI,
+                                   inst_enc << prim_bits, t_limit, t_best, pp, occ,
+                                   work, stack_mem + threadIdx.x);
   }
   t_out[i] = t_best;
   pp_out[i] = pp;
@@ -346,18 +358,19 @@ int launch_treelets(const float* o, const float* d, const float* tmax, int n,
                     const Walker& wk, const int* mask, int lanes_per_packet,
                     const int* t_root, const int* t_inst, const float* t_w2o,
                     int n_treelets, int all_identity, int prim_bits,
-                    float* t_out, int* pp_out, int* overflow,
-                    unsigned long long* work_out, void* stream) {
+                    float* t_out, int* pp_out, unsigned long long* work_out,
+                    void* stream) {
   const int blocks = (n + THREADS - 1) / THREADS;
+  const size_t smem = wk.smem_bytes();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (blocks > 0 && work_out != nullptr) {
-    treelet_kernel<true, Walker><<<blocks, THREADS, 0, s>>>(
+    treelet_kernel<true, Walker><<<blocks, THREADS, smem, s>>>(
         o, d, tmax, n, wk, mask, lanes_per_packet, t_root, t_inst, t_w2o,
-        n_treelets, all_identity, prim_bits, t_out, pp_out, overflow, work_out);
+        n_treelets, all_identity, prim_bits, t_out, pp_out, work_out);
   } else if (blocks > 0) {
-    treelet_kernel<false, Walker><<<blocks, THREADS, 0, s>>>(
+    treelet_kernel<false, Walker><<<blocks, THREADS, smem, s>>>(
         o, d, tmax, n, wk, mask, lanes_per_packet, t_root, t_inst, t_w2o,
-        n_treelets, all_identity, prim_bits, t_out, pp_out, overflow, nullptr);
+        n_treelets, all_identity, prim_bits, t_out, pp_out, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

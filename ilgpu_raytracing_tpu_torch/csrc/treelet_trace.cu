@@ -43,18 +43,18 @@ const char* treelet_error_string(int err) {
 int treelet_max_stack() { return trace::MAX_STACK; }
 
 // One K7 round. mask (packets,) i32; t_root/t_inst (T+1,), t_w2o ((T+1)*12,);
-// t_out/pp_out (n,); overflow (1,) zeroed; work (2,) zeroed or null.
+// t_out/pp_out (n,); work (2,) zeroed or null.
 int treelet_trace(const float* o, const float* d, const float* tmax, int n,
                   const float* wb, const int* wc, const int* wp,
                   const float* tri_rows, const float* sph_rows, int leaf_width,
                   int stack_cap, const int* mask, int lanes_per_packet,
                   const int* t_root, const int* t_inst, const float* t_w2o,
                   int n_treelets, int all_identity, float* t_out, int* pp_out,
-                  int* overflow, unsigned long long* work, void* stream) {
+                  unsigned long long* work, void* stream) {
   const trace::WideWalker wk{wb, wc, wp, tri_rows, sph_rows, leaf_width, stack_cap};
   return trace::launch_treelets(o, d, tmax, n, wk, mask, lanes_per_packet, t_root,
                                 t_inst, t_w2o, n_treelets, all_identity,
-                                PP_PRIM_BITS, t_out, pp_out, overflow, work, stream);
+                                PP_PRIM_BITS, t_out, pp_out, work, stream);
 }
 
 }  // extern "C"

@@ -28,8 +28,8 @@
 // compressed nodes and persistent threads are later work.
 //
 // The per-thread stack is bounded on the host (7 * wide depth + 1 entries,
-// passed as stack_cap); a push beyond it sets *overflow and the Python wrapper
-// raises. Nodes are never dropped silently.
+// passed as stack_cap); a push beyond it fails a device-side assert, and the
+// next synchronizing call raises. Nodes are never dropped silently.
 //
 // The ray record, slab and leaf predicates and the loop over instances live in
 // trace_common.cuh, shared with the other trace kernels; the walk itself is
@@ -57,18 +57,18 @@ const char* wide_error_string(int err) {
 
 int wide_max_stack() { return trace::MAX_STACK; }
 
-// K1: closest hit. t_out/pp_out (n,), overflow (1,) zeroed by the caller;
-// work (2,) zeroed, or null (see launch_trace).
+// K1: closest hit. t_out/pp_out (n,); work (2,) zeroed, or null (see
+// launch_trace).
 int wide_trace_closest(const float* o, const float* d, const float* tmax, int n,
                        const float* wb, const int* wc, const int* wp,
                        const float* tri_rows, const float* sph_rows,
                        const int* inst_i, const float* inst_f, int n_inst,
                        int leaf_width, int stack_cap, float* t_out, int* pp_out,
-                       int* overflow, unsigned long long* work, void* stream) {
+                       unsigned long long* work, void* stream) {
   const WideWalker wk{wb, wc, wp, tri_rows, sph_rows, leaf_width, stack_cap};
   return trace::launch_trace<false>(o, d, tmax, n, wk, inst_i, inst_f, n_inst,
-                                    PP_PRIM_BITS, t_out, pp_out, nullptr,
-                                    overflow, work, stream);
+                                    PP_PRIM_BITS, t_out, pp_out, nullptr, work,
+                                    stream);
 }
 
 // K2: any-hit occlusion within (T_EPS, tmax). occ_out (n,) bool.
@@ -76,12 +76,12 @@ int wide_trace_shadow(const float* o, const float* d, const float* tmax, int n,
                       const float* wb, const int* wc, const int* wp,
                       const float* tri_rows, const float* sph_rows,
                       const int* inst_i, const float* inst_f, int n_inst,
-                      int leaf_width, int stack_cap, bool* occ_out, int* overflow,
+                      int leaf_width, int stack_cap, bool* occ_out,
                       unsigned long long* work, void* stream) {
   const WideWalker wk{wb, wc, wp, tri_rows, sph_rows, leaf_width, stack_cap};
   return trace::launch_trace<true>(o, d, tmax, n, wk, inst_i, inst_f, n_inst,
-                                   PP_PRIM_BITS, nullptr, nullptr, occ_out,
-                                   overflow, work, stream);
+                                   PP_PRIM_BITS, nullptr, nullptr, occ_out, work,
+                                   stream);
 }
 
 }  // extern "C"

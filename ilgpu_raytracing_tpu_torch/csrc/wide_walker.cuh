@@ -19,12 +19,14 @@ struct WideWalker {
   int leaf_width;
   int stack_cap;
 
+  size_t smem_bytes() const { return 0; }  // the stack is a local array
+
   // Closest: tightens t_best / pp. Any-hit: returns at the first accepting
-  // primitive with occ = true. Returns false on stack overflow.
+  // primitive with occ = true. A push past stack_cap fails an assert.
   template <bool ANY_HIT, bool COUNT>
-  __device__ bool walk(const Ray& r, int root, bool is_tri, int inst_bits,
+  __device__ void walk(const Ray& r, int root, bool is_tri, int inst_bits,
                        float t_limit, float& t_best, int& pp, bool& occ,
-                       Work& work) const {
+                       Work& work, int* /* shared stack, unused */) const {
     int stack[MAX_STACK];
     int sp = 0;
     stack[sp++] = root;
@@ -53,18 +55,23 @@ struct WideWalker {
         if (test_row<ANY_HIT, COUNT>(row, count, is_tri, r, inst_bits, t_limit,
                                      t_best, pp, work)) {
           occ = true;
-          return true;
+          return;
         }
+      }
+      // One check for all of the node's pushes, outside the unrolled loop:
+      // an assert inside it (eight call sites) made K1 and K2 over twice as
+      // slow on an H100.
+      if (sp + __popc(inner) > stack_cap) {  // the host's bound (7 * wide depth + 1) was wrong
+        assert(false && "wide walk: per-thread stack overflow");
+        return;
       }
       // far-first pushes leave the nearest inner child on top
 #pragma unroll
       for (int rank = WIDTH - 1; rank >= 0; --rank) {
         if (!((inner >> rank) & 1u)) continue;
-        if (sp >= stack_cap) return false;
         stack[sp++] = wc[wid * WIDTH + ((perm >> (rank * 4)) & 7)];
       }
     }
-    return true;
   }
 };
 

@@ -61,7 +61,7 @@ inline int4 __ldg(const int4* p) { return *p; }
 inline int __ldg(const int* p) { return *p; }
 inline float __int_as_float(int v) { float f; std::memcpy(&f, &v, sizeof f); return f; }
 inline int __ffs(int v) { return __builtin_ffs(v); }
-inline int atomicExch(int* p, int v) { int o = *p; *p = v; return o; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline unsigned atomicMax(unsigned* p, unsigned v) {
   unsigned o = *p; if (v > o) *p = v; return o;
 }

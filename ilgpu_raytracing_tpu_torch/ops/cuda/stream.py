@@ -12,10 +12,10 @@ Host side (numpy), ported from the JAX package's
   outward in the kernel's own float32 dequantization.
 Tables are identical to the JAX package's. As in ops/cuda/wide.py, the
 static `meta` tuple also becomes a device instance table, and the wide
-depth is derived for the kernels: K4's per-thread DFS stack bound is 7 *
-depth + 1, K5's node-group stack holds `depth` entries.
-K5 reads one more table, `anyhit_nodes`: the node tables packed into one
-128-byte record per node (`pack_anyhit_nodes`).
+depth is derived for the kernels: the node-group stacks of K4 and K5 hold
+`depth` entries (the plain walk's per-lane DFS bound is 7 * depth + 1).
+The kernels read the node tables packed into one 128-byte record per node,
+`anyhit_nodes` (`pack_anyhit_nodes`), and K4 also `wide_perm`.
 
 Device side: `trace_closest_stream_packed` (K4) and
 `shadow_occlusion_stream` (K5) launch the CUDA kernels on CUDA tensors and
@@ -103,7 +103,7 @@ class StreamScene:
     stack_cap: int = 256  # TPU frontier bound (table parity with the JAX prep)
     wide_depth: int = 0  # most inner wide nodes on a root-to-leaf chain
     needs_bary: bool = True
-    # (W, 32) i32 K5 node records, derived from the wide tables above
+    # (W, 32) i32 node records of K4, K5 and K8, derived from the wide tables
     anyhit_nodes: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
@@ -112,14 +112,15 @@ class StreamScene:
 
     @property
     def thread_stack(self) -> int:
-        """K4's per-thread DFS bound (wide._thread_stack_bound)."""
+        """The plain walk's per-lane DFS bound (wide._thread_stack_bound)."""
         return 7 * self.wide_depth + 1
 
 
 def pack_anyhit_nodes(wide_frame, wide_qbounds, wide_child) -> torch.Tensor:
-    """K5's node table: per wide node one 128-byte record of 32 int32 words,
-    the frame (lo.xyz, scale.xyz as float32 bits), two zero words, the 16
-    quantized-box words and the 8 child words, on the tables' device."""
+    """The node table of the streaming kernels (csrc/stream_nodes.cuh): per
+    wide node one 128-byte record of 32 int32 words, the frame (lo.xyz,
+    scale.xyz as float32 bits), two zero words, the 16 quantized-box words
+    and the 8 child words, on the tables' device."""
     w = wide_child.numel() // WIDTH
     return torch.cat([
         wide_frame.view(torch.int32).view(w, 6),
@@ -426,18 +427,33 @@ def library():
     """(CDLL, build seconds) of csrc/stream_trace.cu, built at first use."""
     if "lib" not in _state:
         lib, seconds = cu.load_kernel_library("stream_trace")
-        common = [cu.VP, cu.VP, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.VP, cu.VP,
-                  cu.VP, cu.VP, cu.VP, cu.CI, cu.CI]
         lib.stream_trace_closest.restype = cu.CI
-        lib.stream_trace_closest.argtypes = common + [cu.VP] * 5
+        lib.stream_trace_closest.argtypes = (
+            [cu.VP, cu.VP, cu.VP, cu.CI] + [cu.VP] * 6 + [cu.CI] * 2 + [cu.VP] * 4)
         lib.stream_trace_anyhit.restype = cu.CI
         lib.stream_trace_anyhit.argtypes = (
-            [cu.VP, cu.VP, cu.VP, cu.CI] + [cu.VP] * 5 + [cu.CI] * 2 + [cu.VP] * 5)
-        lib.stream_max_stack.restype = cu.CI
-        lib.stream_anyhit_max_depth.restype = cu.CI
+            [cu.VP, cu.VP, cu.VP, cu.CI] + [cu.VP] * 5 + [cu.CI] * 2 + [cu.VP] * 4)
+        lib.stream_max_depth.restype = cu.CI
         _state["lib"] = lib
         return lib, seconds
     return _state["lib"], 0.0
+
+
+def check_walk_tables(ss: StreamScene, max_depth: int, label: str) -> None:
+    """Refuse, before any launch, tables a node-group walk cannot take: a
+    wide depth above the `max_depth` entries its stack holds, node ids that
+    overflow the 23 bits of a stack entry, records or leaf rows not 16-byte
+    aligned."""
+    if ss.wide_depth > max_depth:
+        raise ValueError(
+            f"{label}: wide BVH of depth {ss.wide_depth}; the node-group stack "
+            f"holds {max_depth} levels")
+    nodes = ss.anyhit_nodes
+    if nodes.shape[0] >= 1 << 23:
+        raise ValueError(
+            f"{label}: {nodes.shape[0]} wide nodes overflow the 23-bit stack entry")
+    if nodes.data_ptr() % 16 or ss.tri_rows.data_ptr() % 16 or ss.sph_rows.data_ptr() % 16:
+        raise ValueError(f"{label}: node records and leaf rows must be 16-byte aligned")
 
 
 def _launch_anyhit(ss: StreamScene, o, d, t_max, work=None, warp_max=None):
@@ -446,32 +462,18 @@ def _launch_anyhit(ss: StreamScene, o, d, t_max, work=None, warp_max=None):
     variant runs and adds the boxes and primitives tested to `work` and
     each lane's boxes + primitives to its warp's max slot."""
     lib, _ = library()
-    depth = ss.wide_depth
-    if depth > lib.stream_anyhit_max_depth():
-        raise ValueError(
-            f"wide BVH of depth {depth}; K5's stack holds "
-            f"{lib.stream_anyhit_max_depth()} levels"
-        )
-    nodes = ss.anyhit_nodes
-    if nodes.shape[0] >= 1 << 23:
-        raise ValueError(f"{nodes.shape[0]} wide nodes overflow K5's 23-bit stack entry")
-    if nodes.data_ptr() % 16 or ss.tri_rows.data_ptr() % 16 or ss.sph_rows.data_ptr() % 16:
-        raise ValueError("stream any-hit: node records and leaf rows must be 16-byte aligned")
+    check_walk_tables(ss, lib.stream_max_depth(), "stream any-hit")
     n = o.shape[0]
     occ = torch.empty((n,), dtype=torch.bool, device=o.device)
-    overflow = torch.zeros((1,), dtype=torch.int32, device=o.device)
     err = lib.stream_trace_anyhit(
-        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, nodes.data_ptr(),
+        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, ss.anyhit_nodes.data_ptr(),
         ss.tri_rows.data_ptr(), ss.sph_rows.data_ptr(), ss.inst_i.data_ptr(),
-        ss.inst_f.data_ptr(), ss.inst_i.shape[0], depth, occ.data_ptr(),
-        overflow.data_ptr(),
+        ss.inst_f.data_ptr(), ss.inst_i.shape[0], ss.wide_depth, occ.data_ptr(),
         None if work is None else work.data_ptr(),
         None if warp_max is None else warp_max.data_ptr(), cu.stream_ptr(o))
     cu.check(lib, "stream", err)
     if work is None:
         LAUNCHES["stream_shadow"] += 1
-    if int(overflow.item()) != 0:
-        raise RuntimeError(f"stream any-hit: stack overflow (wide depth bound {depth})")
     return (occ,)
 
 
@@ -480,22 +482,15 @@ def _launch(ss: StreamScene, o, d, t_max, any_hit: bool, work=None):
         return _launch_anyhit(ss, o, d, t_max, work,
                               None if work is None else _warp_slots(o))
     lib, _ = library()
-    if ss.thread_stack > lib.stream_max_stack():
-        raise ValueError(
-            f"wide BVH needs a {ss.thread_stack}-entry per-thread stack; the "
-            f"kernel holds {lib.stream_max_stack()}"
-        )
-    if ss.tri_rows.data_ptr() % 16 or ss.sph_rows.data_ptr() % 16:
-        raise ValueError("stream trace: leaf rows must be 16-byte aligned")
+    check_walk_tables(ss, lib.stream_max_depth(), "stream trace")
     tables = [
-        ss.wide_frame.data_ptr(), ss.wide_qbounds.data_ptr(),
-        ss.wide_child.data_ptr(), ss.wide_perm.data_ptr(),
+        ss.anyhit_nodes.data_ptr(), ss.wide_perm.data_ptr(),
         ss.tri_rows.data_ptr(), ss.sph_rows.data_ptr(),
         ss.inst_i.data_ptr(), ss.inst_f.data_ptr(), ss.inst_i.shape[0],
     ]
     if work is None:
         LAUNCHES["stream_closest"] += 1
-    return launch_walk(lib, "stream", tables, ss.thread_stack, o, d, t_max,
+    return launch_walk(lib, "stream", tables, ss.wide_depth, o, d, t_max,
                        False, work)
 
 

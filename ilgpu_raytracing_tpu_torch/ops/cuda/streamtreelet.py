@@ -33,6 +33,7 @@ from ilgpu_raytracing_tpu_torch.ops.cuda.stream import (
     SPP_PRIM_BITS,
     StreamScene,
     _quantize_bounds,
+    check_walk_tables,
 )
 from ilgpu_raytracing_tpu_torch.ops.cuda.wide import (
     _EMPTY,
@@ -162,8 +163,8 @@ def stream_treelet_from_numpy(tables: dict, sscene: StreamScene) -> StreamTreele
 def treelet_stream_arrays(sts: StreamTreeletScene) -> tuple:
     """The device tables one K8 round reads."""
     s = sts.sscene
-    return (sts.t_root, sts.t_inst, s.wide_child, s.wide_frame, s.wide_qbounds,
-            s.wide_perm, s.tri_rows, s.sph_rows)
+    return (sts.t_root, sts.t_inst, s.anyhit_nodes, s.wide_perm, s.tri_rows,
+            s.sph_rows)
 
 
 # ------------------------------------------------------------- plain walk
@@ -218,9 +219,9 @@ def library():
         lib, seconds = cu.load_kernel_library("streamtreelet_trace")
         lib.streamtreelet_trace.restype = cu.CI
         lib.streamtreelet_trace.argtypes = (
-            [cu.VP, cu.VP, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.VP, cu.VP, cu.VP,
-             cu.CI, cu.VP, cu.CI, cu.VP, cu.VP, cu.CI] + [cu.VP] * 5)
-        lib.streamtreelet_max_stack.restype = cu.CI
+            [cu.VP, cu.VP, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.VP, cu.CI, cu.VP,
+             cu.CI, cu.VP, cu.VP, cu.CI] + [cu.VP] * 4)
+        lib.streamtreelet_max_depth.restype = cu.CI
         _state["lib"] = lib
         return lib, seconds
     return _state["lib"], 0.0
@@ -229,15 +230,9 @@ def library():
 def _launch(sts: StreamTreeletScene, mask, o, d, t_max, tile_rows, work=None):
     lib, _ = library()
     s = sts.sscene
-    if s.thread_stack > lib.streamtreelet_max_stack():
-        raise ValueError(
-            f"treelet walk needs a {s.thread_stack}-entry per-thread stack; the "
-            f"kernel holds {lib.streamtreelet_max_stack()}")
-    if s.tri_rows.data_ptr() % 16 or s.sph_rows.data_ptr() % 16:
-        raise ValueError("stream treelet round: leaf rows must be 16-byte aligned")
-    tables = [s.wide_frame.data_ptr(), s.wide_qbounds.data_ptr(),
-              s.wide_child.data_ptr(), s.wide_perm.data_ptr(), s.tri_rows.data_ptr(),
-              s.sph_rows.data_ptr(), s.thread_stack]
+    check_walk_tables(s, lib.streamtreelet_max_depth(), "stream treelet round")
+    tables = [s.anyhit_nodes.data_ptr(), s.wide_perm.data_ptr(), s.tri_rows.data_ptr(),
+              s.sph_rows.data_ptr(), s.wide_depth]
     if work is None:
         LAUNCHES["streamtreelet"] += 1
     return treelet.launch_round(lib, "streamtreelet", tables, o, d, t_max, mask,

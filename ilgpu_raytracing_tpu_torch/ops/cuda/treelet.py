@@ -19,7 +19,7 @@ the rounds): lane i of the sorted rays walks the treelets set in its
 packet's want mask, packet = i // (tile_rows * 128). On CUDA tensors it
 launches K7, on CPU tensors it runs the plain version, a per-lane loop over
 the mask's treelets around `plain_walk`, the plain form of the kernels'
-8-wide walk (wide_walker.cuh, stream_walker.cuh) from a given root.
+8-wide walk (wide_walker.cuh, stream_closest.cuh) from a given root.
 """
 
 from __future__ import annotations
@@ -353,15 +353,18 @@ def wide_leaf(leaf_width: int):
 
 def plain_walk(wc, wp, boxes, leaf, rows_tbl, is_tri: bool, root: int, o, d,
                inst_bits: int, t_best, pp, stack_cap: int):
-    """The 8-wide walk of wide_walker.cuh / stream_walker.cuh for every lane
+    """The 8-wide walk of wide_walker.cuh / stream_closest.cuh for every lane
     at once, from one `root` (closest hit): each lane pops its own stack,
     tests the children in the order of its own direction octant, tests a
     hit leaf at once (the first accepted minimum, which is what the kernel's
     sequential `t < t_best` keeps) and pushes hit inner children far-first.
+    Its test order (a node's hit leaves by rank, then its inner children's
+    subtrees by rank, a leaf's rows and slots in order) decides ties in t;
+    the kernels keep it, so they equal this walk in t and pp bit for bit.
     `boxes(wid, c8)` reads child boxes, `leaf(enc)` decodes a leaf into
     (first row, rows, slots a row). Updates t_best and pp (the lanes'
     running record, prim | inst_bits) in place. Raises when a lane's stack
-    would exceed stack_cap, as the kernel's overflow flag does."""
+    would exceed stack_cap, as the kernels' stack assert does."""
     n = o.shape[0]
     dev = o.device
     inv = binary.inv_dir(d)
@@ -490,7 +493,7 @@ def library():
         lib.treelet_trace.restype = cu.CI
         lib.treelet_trace.argtypes = (
             [cu.VP, cu.VP, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.VP, cu.VP, cu.CI,
-             cu.CI, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.CI, cu.CI] + [cu.VP] * 5)
+             cu.CI, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.CI, cu.CI] + [cu.VP] * 4)
         lib.treelet_max_stack.restype = cu.CI
         _state["lib"] = lib
         return lib, seconds
@@ -501,20 +504,17 @@ def launch_round(lib, prefix: str, tables: list, o, d, t_max, mask, tile_rows: i
                  treelet_args: list, work=None):
     """Launch `<prefix>_trace` (one K7/K8 round) on the rays: `tables` are
     the walker's arguments, `treelet_args` the treelet tables after the
-    mask. Raises on a launch error or a stack overflow. Returns (t, pp)."""
+    mask. Raises on a launch error; a walk past the host's stack bound fails
+    a device-side assert (nothing is read back). Returns (t, pp)."""
     n = o.shape[0]
     dev = o.device
-    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     pp = torch.empty((n,), dtype=torch.int32, device=dev)
     err = getattr(lib, prefix + "_trace")(
         o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, *tables, mask.data_ptr(),
         tile_rows * LANES, *treelet_args, t.data_ptr(), pp.data_ptr(),
-        overflow.data_ptr(), None if work is None else work.data_ptr(),
-        cu.stream_ptr(o))
+        None if work is None else work.data_ptr(), cu.stream_ptr(o))
     cu.check(lib, prefix, err)
-    if int(overflow.item()) != 0:
-        raise RuntimeError(f"{prefix} round: per-thread stack overflow")
     return t, pp
 
 

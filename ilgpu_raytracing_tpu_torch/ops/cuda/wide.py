@@ -445,9 +445,9 @@ def library():
         common = [cu.VP, cu.VP, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.VP, cu.VP,
                   cu.VP, cu.VP, cu.CI, cu.CI, cu.CI]
         lib.wide_trace_closest.restype = cu.CI
-        lib.wide_trace_closest.argtypes = common + [cu.VP] * 5
+        lib.wide_trace_closest.argtypes = common + [cu.VP] * 4
         lib.wide_trace_shadow.restype = cu.CI
-        lib.wide_trace_shadow.argtypes = common + [cu.VP] * 4
+        lib.wide_trace_shadow.argtypes = common + [cu.VP] * 3
         lib.wide_max_stack.restype = cu.CI
         _state["lib"] = lib
         return lib, seconds
@@ -470,20 +470,20 @@ def _check_rays(device, o, d, t_max, label: str = "wide trace"):
         raise ValueError(f"{label}: unsupported device {o.device}")
 
 
-def launch_walk(lib, prefix: str, tables: list, thread_stack: int, o, d, t_max,
+def launch_walk(lib, prefix: str, tables: list, stack_bound: int, o, d, t_max,
                 any_hit: bool, work=None):
     """Launch `<prefix>_trace_closest` or `<prefix>_trace_shadow` of a trace
     library (csrc/trace_common.cuh) on the rays; `tables` are the scene
-    arguments between the rays and the stack bound. With `work` (2 zeroed
-    int64 on the rays' device) the counting variant runs and adds the boxes
-    and primitives it tested there. Raises on a launch error or a stack
-    overflow. Returns (t, pp) or (occ,)."""
+    arguments between the rays and the stack bound the host proved. With
+    `work` (2 zeroed int64 on the rays' device) the counting variant runs and
+    adds the boxes and primitives it tested there. Raises on a launch error;
+    a walk past the stack bound fails a device-side assert, which the next
+    synchronizing call raises, so nothing is read back here. Returns (t, pp)
+    or (occ,)."""
     n = o.shape[0]
     dev = o.device
-    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
-    args = [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, *tables, thread_stack]
-    tail = [overflow.data_ptr(), None if work is None else work.data_ptr(),
-            cu.stream_ptr(o)]
+    args = [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, *tables, stack_bound]
+    tail = [None if work is None else work.data_ptr(), cu.stream_ptr(o)]
     if any_hit:
         occ = torch.empty((n,), dtype=torch.bool, device=dev)
         err = getattr(lib, prefix + "_trace_shadow")(*args, occ.data_ptr(), *tail)
@@ -495,10 +495,6 @@ def launch_walk(lib, prefix: str, tables: list, thread_stack: int, o, d, t_max,
             *args, t.data_ptr(), pp.data_ptr(), *tail)
         out = (t, pp)
     cu.check(lib, prefix, err)
-    if int(overflow.item()) != 0:
-        raise RuntimeError(
-            f"{prefix} trace: per-thread stack overflow (bound {thread_stack})"
-        )
     return out
 
 

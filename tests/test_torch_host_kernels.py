@@ -4,15 +4,25 @@ ops/cuda/host_check.py compiles csrc/wide_trace.cu, stream_trace.cu,
 binary_trace.cu, treelet_trace.cu and streamtreelet_trace.cu (with the
 csrc/*.cuh headers) for the host with g++; here they are bound in place of
 the nvcc builds and run through the wrappers' launch path (ctypes argument
-order, stack-overflow flag, the counting variant) on CPU tensors. K1/K2 and
+order, the counting variant) on CPU tensors. K1/K2 and
 K4/K5 are held to the plain walks on primary and bounce rays: hit masks and
 occlusion equal, |dt| <= 1e-3, prim agreement > 99.5% (the bar chip_smoke.py
 holds them to on the card). K5, with a tenth of the lanes inactive, also
 equals the plain walk and K4's hit mask at t_max 5 and 1e29 on the small
 terrain and the leaf-64 Cornell box. K6, K7 and K8 are held to their own plain
 versions bit for bit: every output of K6, and t / pp of one treelet round on
-random want masks. This checks the kernels' logic; what nvcc accepts, and
-speed, show only on the card."""
+random want masks. K4 also equals, bit for bit in t and pp, the plain walk
+in its own test order (`treelet.plain_walk` from each instance's root): the
+order on which K8 = K4 on the card depends. The wrappers refuse, before any
+launch, tables deeper than the node-group stacks hold, and a walk past its
+stack bound fails the kernel's assert (in a child process). This checks the
+kernels' logic; what nvcc accepts, and speed, show only on the card."""
+
+import copy
+import os
+import resource
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -20,7 +30,7 @@ import torch
 from ilgpu_raytracing_tpu_torch import native as tnative
 from ilgpu_raytracing_tpu_torch.models import cornell, terrain
 from ilgpu_raytracing_tpu_torch.models.camera import Camera
-from ilgpu_raytracing_tpu_torch.models.scene import build_default_scene
+from ilgpu_raytracing_tpu_torch.models.scene import BLAS_TRI_MESH, build_default_scene
 from ilgpu_raytracing_tpu_torch.ops import cuda as cu
 from ilgpu_raytracing_tpu_torch.ops.cuda import (
     binary,
@@ -30,6 +40,8 @@ from ilgpu_raytracing_tpu_torch.ops.cuda import (
     treelet,
     wide,
 )
+from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
+from ilgpu_raytracing_tpu_torch.utils.build import BUILD_DIR
 
 KERNEL_MODULES = (wide, stream, binary, treelet, streamtreelet)
 
@@ -146,3 +158,108 @@ def test_host_built_k5_equals_the_plain_walk_and_k4(host, case):
     assert host.check_anyhit(f"{case} bounce", ss, bo, bd, 5)
     # the host build ran, not the plain walk: 2 K5 launches per check
     assert stream.LAUNCHES["stream_shadow"] - launches == 4
+
+
+def _plain_order_walk(ss, o, d):
+    """K4's result in the plain walk's own test order: `treelet.plain_walk`
+    from each instance's root, in instance order, carrying t_best and pp."""
+    n = o.shape[0]
+    t_best = torch.full((n,), T_INF)
+    pp = torch.full((n,), -1, dtype=torch.int32)
+    boxes = streamtreelet.stream_boxes(ss.wide_frame, ss.wide_qbounds)
+    for entry in ss.meta:
+        kind, root, w2o = entry[0], entry[1], entry[2]
+        is_tri = kind == BLAS_TRI_MESH
+        ro, rd = o, d
+        if not wide._is_identity(w2o):
+            ro, rd = binary.transform(torch.tensor(w2o, dtype=torch.float32), o, d)
+        treelet.plain_walk(ss.wide_child, ss.wide_perm, boxes, streamtreelet.stream_leaf,
+                           ss.tri_rows if is_tri else ss.sph_rows, is_tri, root, ro, rd,
+                           treelet._inst_enc(entry) << stream.SPP_PRIM_BITS, t_best, pp,
+                           ss.thread_stack)
+    return t_best, pp
+
+
+@pytest.mark.parametrize("case", list(ANYHIT_CASES))
+def test_host_built_k4_keeps_the_plain_walk_order(host, case):
+    """K4 (csrc/stream_closest.cuh) equals the order-exact plain walk bit for
+    bit in t and pp on primary and bounce rays: a tie in t goes to the
+    primitive tested first, so equal pp pins the test order."""
+    build, camera = ANYHIT_CASES[case]
+    scene = build()
+    ss = stream.prepare_stream(scene)
+    o, d = host.jittered_rays(camera(48, 32), 48, 32, 1)
+    bo, bd = host.bounce_rays(scene, host.primary_hits(stream, ss, o, d), o, d, 2)
+    launches = stream.LAUNCHES["stream_closest"]
+    for ro, rd in ((o, d), (bo, bd)):
+        t_k, pp_k = stream._launch(ss, ro, rd, torch.full((ro.shape[0],), T_INF),
+                                   any_hit=False)
+        t_p, pp_p = _plain_order_walk(ss, ro, rd)
+        assert int((pp_p >= 0).sum()) > 100
+        assert torch.equal(t_k, t_p) and torch.equal(pp_k, pp_p)
+    assert stream.LAUNCHES["stream_closest"] - launches == 2
+
+
+@pytest.fixture(scope="module")
+def small_terrain_stream():
+    scene = CASES["terrain_stream"][1]()
+    o, d = host_check.jittered_rays(terrain.terrain_camera(16, 8), 16, 8, 1)
+    return stream.prepare_stream(scene), o, d
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K8"])
+def test_wrappers_refuse_tables_deeper_than_the_stack(host, small_terrain_stream, kernel):
+    """A wide depth above the node-group stack's capacity is refused before
+    any launch (the kernel's assert is the last line, not the check)."""
+    ss, o, d = small_terrain_stream
+    tm = torch.full((o.shape[0],), T_INF)
+    if kernel == "K8":
+        sts = streamtreelet.prepare_treelets_stream(ss, 8)
+        cap = streamtreelet.library()[0].streamtreelet_max_depth()
+        sts.sscene = copy.copy(sts.sscene)
+        sts.sscene.wide_depth = cap + 1
+        mask = torch.full((1,), -1, dtype=torch.int32)
+        counts = streamtreelet.LAUNCHES
+        call = lambda: streamtreelet._launch(sts, mask, o, d, tm, 1)  # noqa: E731
+    else:
+        cap = stream.library()[0].stream_max_depth()
+        deep = copy.copy(ss)
+        deep.wide_depth = cap + 1
+        counts = stream.LAUNCHES
+        call = lambda: stream._launch(deep, o, d, tm, any_hit=kernel == "K5")  # noqa: E731
+    before = dict(counts)
+    with pytest.raises(ValueError, match="node-group stack holds"):
+        call()
+    assert counts == before
+
+
+OVERFLOW_CHILD = """
+import sys, torch
+from ilgpu_raytracing_tpu_torch.models import terrain
+from ilgpu_raytracing_tpu_torch.ops import cuda as cu
+from ilgpu_raytracing_tpu_torch.ops.cuda import host_check, stream
+import ctypes
+cu.load_kernel_library = lambda name: (ctypes.CDLL(sys.argv[1]), 0.0)
+cu.stream_ptr = lambda t: None
+ss = stream.prepare_stream(terrain.build_terrain_scene(grid_x=64, grid_z=32, device="cpu")[1])
+o, d = host_check.jittered_rays(terrain.terrain_camera(32, 16), 32, 16, 1)
+ss.wide_depth = 0  # no stack entry: the first push must fail the walk's assert
+stream._launch(ss, o, d, torch.full((o.shape[0],), 1e30), any_hit=False)
+print("the walk returned")
+"""
+
+
+def test_host_built_k4_fails_its_assert_past_the_stack_bound(host):
+    """K4 called with a stack cap of 0 on terrain rays (the small terrain's
+    walks need at most wide depth - 1 entries, so a cap of 1 may hold): the
+    walk's assert ends the process (on the card, the device-side assert fails the next
+    synchronizing call; chip_smoke.py checks that in a child process)."""
+    so = os.path.join(BUILD_DIR, "host", "libstream_trace.so")  # the fixture's build
+    proc = subprocess.run(
+        [sys.executable, "-c", OVERFLOW_CHILD, so], capture_output=True,
+        text=True, timeout=300,  # the abort writes no core file
+        preexec_fn=lambda: resource.setrlimit(resource.RLIMIT_CORE, (0, 0)),
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert proc.returncode != 0, proc.stdout + proc.stderr
+    assert "the walk returned" not in proc.stdout
+    assert "node-group stack overflow" in proc.stderr, proc.stderr[-2000:]
