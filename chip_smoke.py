@@ -32,7 +32,10 @@ Phases:
      of tests/test_wide_kernel.py (hit masks agree, relative t mismatch
      above 1e-3 on < 0.5% of rays, shadow agreement > 99.5%); the same
      bar on the default 6-sphere scene and a scene with transformed
-     instances;
+     instances; ptxas's report of csrc/wide_trace.cu and
+     csrc/treelet_trace.cu; K1 called with a stack cap of 1 on the bench
+     bounce lanes must fail the walk's device-side assert (in a child
+     process);
   5. a 64x64 Cornell frame pair rendered with the kernels on the card and
      with the plain versions on the CPU, held to the golden-image bar;
   6. the Cornell main path: one warm-up and 6 timed 1080p frames, each
@@ -40,7 +43,8 @@ Phases:
   7. K6 vs its plain version on 65,536-ray subsets of the bench scene's
      primary rays and sorted bounce lanes (hit masks and t, prim, inst
      equal on every ray, any-hit equal at t_max 5 and 1e29); K6 timed on
-     the full bounce population;
+     the full bounce population, and in turns with K1 and K2 on the same
+     lanes (the route pair: wide against binary tables);
   8. a 64x64 Cornell frame pair through the binary route, card vs CPU;
   9. the K6 main path: the 1080p bench frame through `Renderer` with a
      BinaryScene, one warm-up and 3 timed frames with every launch count
@@ -309,17 +313,21 @@ def phase_k1_k2(dev, results):
         build_cornell_scene,
         cornell_camera,
     )
+    from ilgpu_raytracing_tpu_torch.ops import cuda as cu
     from ilgpu_raytracing_tpu_torch.ops import rays
     from ilgpu_raytracing_tpu_torch.ops.cuda import wide
     from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
 
+    for name in ("wide_trace", "treelet_trace"):
+        for line in cu.ptxas_info(name):
+            log(f"ptxas {name}.cu: {line}")
     t0 = time.monotonic()
     _, scene = build_cornell_scene(tess=24, sphere_tess=(48, 72),
                                    blas_leaf_size=8, bvh_method="sah", device=dev)
     ws = wide.prepare_scene(scene)
     log(f"bench scene: {scene.n_tris} tris, {ws.wide_child.numel() // 8} wide "
-        f"nodes, per-thread stack bound {ws.thread_stack}, prep "
-        f"{time.monotonic() - t0:.2f} s")
+        f"nodes, wide depth {ws.wide_depth} (node-group stack {ws.wide_depth} x "
+        f"128 x 4 B a block), prep {time.monotonic() - t0:.2f} s")
     in_w, in_h = RenderConfig().internal_resolution(1920, 1080)
     o, d = rays.generate_primary_rays(cornell_camera(1920, 1080), in_w, in_h, dev)
     o = o.contiguous()
@@ -351,12 +359,15 @@ def phase_k1_k2(dev, results):
         f"{k1_plain:.4f} ms")
     log(f"K2 bounce {nb} lanes ({n_alive} live): kernel {k2_ms:.4f} ms, plain "
         f"{k2_plain:.4f} ms")
-    tables = (ws.wide_bounds, ws.wide_child, ws.wide_perm, ws.tri_rows,
-              ws.sph_rows, ws.inst_i, ws.inst_f)
+    tables = (ws.nodes, ws.tri_rows, ws.sph_rows, ws.inst_i, ws.inst_f)
     w1 = wide.count_work(ws, bo, bd, tmb, any_hit=False)
     w2 = wide.count_work(ws, bo, bd, tms, any_hit=True)
     log(f"K1 bounce work: {w1[0]} boxes, {w1[1]} primitives; K2: {w2[0]} boxes, "
         f"{w2[1]} primitives")
+    k1_tables = [ws.nodes, ws.tri_rows, ws.sph_rows, ws.inst_i, ws.inst_f,
+                 ws.inst_i.shape[0], ws.leaf_width]
+    log(f"K1 with a stack cap of 1 on the bench bounce lanes: the child process failed: "
+        f"{_overflow_fails('K1', 'wide', k1_tables, bo, bd, tmb)}")
     results["wide_closest"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
                                    **trace_bound(nb, w1, False, BOX_OPS, tables),
                                    library_ms=None)
@@ -579,6 +590,27 @@ def _binary_bar(bs, o, d, label):
     return err
 
 
+def route_pair(ws, bs, bo, bd, act, tmb, tms, n_alive):
+    """K1 beside K6 closest and K2 beside K6 any-hit on the same bench bounce
+    lanes, in turns (K1, K6, K6, K1): one paired line for the route
+    question, wide against binary tables."""
+    from ilgpu_raytracing_tpu_torch.ops.cuda import binary, wide
+
+    calls = dict(
+        k1=lambda: wide.trace_closest_wide_packed(ws, bo, bd, active=act),
+        k6c=lambda: binary.trace_binary_raw(bs, bo, bd, tmb),
+        k2=lambda: wide.shadow_occlusion_wide(ws, bo, bd, 1e29, active=act),
+        k6s=lambda: binary.shadow_occlusion_binary(bs, bo, bd, tms))
+    ms = {k: [] for k in calls}
+    for order in (("k1", "k6c", "k2", "k6s"), ("k6s", "k2", "k6c", "k1")):
+        for k in order:
+            ms[k].append(cuda_ms(calls[k], 10))
+    txt = {k: ", ".join(f"{v:.4f}" for v in vals) for k, vals in ms.items()}
+    log(f"route pair on the {bo.shape[0]} bench bounce lanes ({n_alive} live), in "
+        f"turns: closest K1 {txt['k1']} ms, K6 {txt['k6c']} ms; any-hit K2 {txt['k2']} "
+        f"ms, K6 {txt['k6s']} ms")
+
+
 def phase_k6(dev, results, bench):
     """K6 on the bench scene's primary rays and sorted bounce lanes."""
     from ilgpu_raytracing_tpu_torch.ops.cuda import binary
@@ -601,6 +633,7 @@ def phase_k6(dev, results, bench):
     ms_s = cuda_ms(lambda: binary.shadow_occlusion_binary(bs, bo, bd, tms), 10)
     ms_p = cuda_ms(lambda: binary.trace_binary_raw(bs, o, d, torch.full((n,), T_INF,
                                                                          device=dev)), 10)
+    route_pair(bench["ws"], bs, bo, bd, act, tmb, tms, n_alive)
     stm = torch.full((SUBSET,), T_INF, device=dev)
     plain_c = cuda_ms(lambda: binary.trace_plain(bs, so, sd, stm), 1)
     plain_s = cuda_ms(lambda: binary.shadow_plain(bs, so, sd, torch.full_like(stm, 1e29)), 1)
@@ -712,8 +745,7 @@ def phase_k7(dev, results, bench):
     ts = treelet.prepare_treelets(ws, 32)
     log(f"K7 treelets: {ts.n_treelets} over {ws.wide_child.numel() // 8} wide nodes "
         f"(+{(ts.wscene.wide_child.numel() - ws.wide_child.numel()) // 8} wrappers), "
-        f"per-thread stack bound {ts.wscene.thread_stack}, prep "
-        f"{time.monotonic() - t0:.2f} s")
+        f"wide depth {ts.wscene.wide_depth}, prep {time.monotonic() - t0:.2f} s")
     t_ref, pp_ref = wide.trace_closest_wide_packed(ws, bo, bd, active=act)
     nb = bo.shape[0]
 
@@ -890,46 +922,39 @@ def _k5_equals_k4(ss, o, d, active, label):
             f"mask on all {o.shape[0]} lanes")
 
 
-K4_OVERFLOW_CHILD = """
+OVERFLOW_CHILD = """
 import sys, torch
-from ilgpu_raytracing_tpu_torch.ops import cuda as cu
-from ilgpu_raytracing_tpu_torch.ops.cuda import stream
+from ilgpu_raytracing_tpu_torch.ops.cuda import stream, wide
 x = torch.load(sys.argv[1], map_location="cuda")
-lib, _ = stream.library()
-n = x["o"].shape[0]
-t = torch.empty(n, device="cuda")
-pp = torch.empty(n, dtype=torch.int32, device="cuda")
-err = lib.stream_trace_closest(
-    x["o"].data_ptr(), x["d"].data_ptr(), x["tm"].data_ptr(), n, x["nodes"].data_ptr(),
-    x["perm"].data_ptr(), x["tri"].data_ptr(), x["sph"].data_ptr(), x["inst_i"].data_ptr(),
-    x["inst_f"].data_ptr(), x["inst_i"].shape[0], 1, t.data_ptr(), pp.data_ptr(), None,
-    cu.stream_ptr(t))
-cu.check(lib, "stream", err)
+prefix = sys.argv[2]
+lib, _ = {"stream": stream, "wide": wide}[prefix].library()
+tables = [a.data_ptr() if torch.is_tensor(a) else a for a in x["tables"]]
+t, pp = wide.launch_walk(lib, prefix, tables, 1, x["o"], x["d"], x["tm"], False)
 torch.cuda.synchronize()
-print("K4 returned", int((pp >= 0).sum()), "hits")
+print("the walk returned", int((pp >= 0).sum()), "hits")
 """
 
 
-def _k4_overflow_fails(ss, o, d, t_max) -> str:
-    """K4's library called with a stack cap of 1 (the terrain's walks need up
-    to wide depth - 1 entries) on the given lanes, in a child process: the
-    walk's device-side assert must fail the synchronizing call. Returns the
-    first line of the error that names the assert."""
+def _overflow_fails(label, prefix, tables, o, d, t_max) -> str:
+    """The closest-hit entry of the `prefix` library (K1 "wide", K4
+    "stream") called with a stack cap of 1 (the walks need up to wide depth
+    - 1 entries) on the given lanes, in a child process: the walk's
+    device-side assert must fail the synchronizing call. `tables` are the
+    entry's scene arguments (tensors and ints). Returns the first line of
+    the error that names the assert."""
     from ilgpu_raytracing_tpu_torch.utils.build import BUILD_DIR
 
-    path = os.path.join(BUILD_DIR, "k4_overflow_case.pt")
-    torch.save(dict(nodes=ss.anyhit_nodes, perm=ss.wide_perm, tri=ss.tri_rows,
-                    sph=ss.sph_rows, inst_i=ss.inst_i, inst_f=ss.inst_f, o=o, d=d,
-                    tm=t_max), path)
+    path = os.path.join(BUILD_DIR, f"{prefix}_overflow_case.pt")
+    torch.save(dict(tables=tables, o=o, d=d, tm=t_max), path)
     try:
-        proc = subprocess.run([sys.executable, "-c", K4_OVERFLOW_CHILD, path],
+        proc = subprocess.run([sys.executable, "-c", OVERFLOW_CHILD, path, prefix],
                               capture_output=True, text=True, timeout=300,
                               cwd=os.path.dirname(os.path.abspath(__file__)))
     finally:
         os.unlink(path)
     said = [ln for ln in proc.stderr.splitlines() if "assert" in ln.lower()]
     check(proc.returncode != 0 and bool(said),
-          f"K4 passed its stack bound without an error: rc {proc.returncode}, "
+          f"{label} passed its stack bound without an error: rc {proc.returncode}, "
           f"{proc.stdout[-300:]} {proc.stderr[-500:]}")
     return said[0].strip()
 
@@ -992,8 +1017,10 @@ def phase_k4_k5(dev, results, scene, ss):
         f"{steps / (32.0 * warp_max):.4f}")
     _k5_equals_k4(ss, o, d, None, "primary")
     _k5_equals_k4(ss, bo, bd, act, "bounce (treelet-sorted)")
+    k4_tables = [ss.anyhit_nodes, ss.wide_perm, ss.tri_rows, ss.sph_rows, ss.inst_i,
+                 ss.inst_f, ss.inst_i.shape[0]]
     log(f"K4 with a stack cap of 1 on the terrain's bounce lanes: the child process "
-        f"failed: {_k4_overflow_fails(ss, bo, bd, tmb)}")
+        f"failed: {_overflow_fails('K4', 'stream', k4_tables, bo, bd, tmb)}")
     results["stream_closest"] = dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain,
                                      **trace_bound(nb, w4, False, QBOX_OPS, tables),
                                      library_ms=None)

@@ -28,7 +28,8 @@
 // tiles behind one scalar SMEM stack, FRONT-node frontiers, subtile want
 // masks, a double-buffered 8 KB DMA per leaf) answers TPU constraints and is
 // not carried over. K4 walks each ray on its own thread with the closest-hit
-// walk of stream_closest.cuh (shared with K8): one packed 128-byte record
+// walk of node_walk.cuh (shared with K8, K1 and K7) over the quantized
+// records of stream_nodes.cuh: one packed 128-byte record
 // and one order word per node, node groups on a stack in shared memory
 // bounded by the wide depth, children in the ray's own octant order, and
 // lanes that visit nodes until each holds hit leaves and then test one leaf
@@ -38,15 +39,15 @@
 // fetch the same leaves. Warp-cooperative leaf staging in shared memory
 // (the DMA idea redone for Hopper) is later work.
 //
-// K5 has a walk of its own (stream_anyhit.cuh): occlusion needs no order,
-// so it visits children in slot order and reads no order word.
+// K5 runs the any-hit walk of node_walk.cuh (shared with K2) in a kernel of
+// its own (stream_anyhit.cuh): occlusion needs no order, so it visits
+// children in slot order and reads no order word.
 //
 // Each walk's stack bound is proven on the host (the wide depth); a walk
 // past it fails a device-side assert instead of setting a flag the wrapper
 // would have to read back.
 
 #include "stream_anyhit.cuh"
-#include "stream_closest.cuh"
 
 namespace {
 
@@ -73,8 +74,8 @@ int stream_trace_closest(const float* o, const float* d, const float* tmax, int 
                          const float* inst_f, int n_inst, int depth_cap,
                          float* t_out, int* pp_out, unsigned long long* work,
                          void* stream) {
-  const trace::ClosestWalker wk{reinterpret_cast<const int4*>(nodes), perm, tri_rows,
-                                sph_rows, depth_cap};
+  const trace::NodeGroupWalker<trace::QuantNodes> wk{
+      {reinterpret_cast<const int4*>(nodes), perm, tri_rows, sph_rows}, depth_cap};
   return trace::launch_trace<false>(o, d, tmax, n, wk, inst_i, inst_f, n_inst,
                                     SPP_PRIM_BITS, t_out, pp_out, nullptr, work,
                                     stream);
@@ -89,8 +90,8 @@ int stream_trace_anyhit(const float* o, const float* d, const float* tmax, int n
                         const float* inst_f, int n_inst, int depth_cap,
                         bool* occ_out, unsigned long long* work, unsigned* warp_max,
                         void* stream) {
-  const trace::AnyHitWalker wk{reinterpret_cast<const int4*>(nodes), tri_rows,
-                               sph_rows, depth_cap};
+  const trace::AnyHitWalker wk{
+      {reinterpret_cast<const int4*>(nodes), nullptr, tri_rows, sph_rows}, depth_cap};
   return trace::launch_anyhit(o, d, tmax, n, wk, inst_i, inst_f, n_inst, occ_out,
                               work, warp_max, stream);
 }

@@ -13,8 +13,8 @@
 // As on the TPU, only identity instance transforms are taken (the host prep
 // refuses others), so the world ray is the object ray.
 //
-// Each treelet walk is the closest-hit walk of K4 (ClosestWalker,
-// stream_closest.cuh) over the cut's extended tables; the loop over the mask
+// Each treelet walk is the closest-hit walk of K4 (node_walk.cuh over the
+// QuantNodes reader of stream_nodes.cuh) over the cut's extended tables; the loop over the mask
 // is treelet_kernel in trace_common.cuh, shared with K7. Both walks keep the
 // plain walk's test order, so the rounds equal K4 bit for bit.
 //
@@ -25,7 +25,7 @@
 // 16-byte loads, and the lanes of a warp test leaves together. Leaf staging
 // shared by a warp is later work.
 
-#include "stream_closest.cuh"
+#include "stream_nodes.cuh"
 
 namespace {
 
@@ -50,8 +50,8 @@ int streamtreelet_trace(const float* o, const float* d, const float* tmax, int n
                         int lanes_per_packet, const int* t_root,
                         const int* t_inst, int n_treelets, float* t_out,
                         int* pp_out, unsigned long long* work, void* stream) {
-  const trace::ClosestWalker wk{reinterpret_cast<const int4*>(nodes), perm, tri_rows,
-                                sph_rows, depth_cap};
+  const trace::NodeGroupWalker<trace::QuantNodes> wk{
+      {reinterpret_cast<const int4*>(nodes), perm, tri_rows, sph_rows}, depth_cap};
   return trace::launch_treelets(o, d, tmax, n, wk, mask, lanes_per_packet, t_root,
                                 t_inst, nullptr, n_treelets, 1, SPP_PRIM_BITS,
                                 t_out, pp_out, work, stream);

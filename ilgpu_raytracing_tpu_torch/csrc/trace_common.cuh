@@ -7,15 +7,15 @@
 // (world-AABB entry, world->object transform, packed closest-hit record) and
 // the per-lane loop over a treelet want mask.
 //
-// Each 8-wide kernel supplies a walker (wide_walker.cuh, stream_closest.cuh),
-// a struct with
+// Each 8-wide kernel supplies a walker (NodeGroupWalker of node_walk.cuh
+// over the reader of wide_nodes.cuh or stream_nodes.cuh), a struct with
 //   template <bool ANY_HIT, bool COUNT> __device__ void walk(const Ray&,
 //       int root, bool is_tri, int inst_bits, float t_limit, float& t_best,
 //       int& pp, bool& occ, Work& work, int* stack) const;
 //   size_t smem_bytes() const;
 // that walks one 8-wide BVH from `root`. `stack` is the thread's column of
 // the block's dynamic shared memory (entry e at stack[e * THREADS]), of
-// smem_bytes() a block; a walker that asks for none ignores it.
+// smem_bytes() a block.
 //
 // The host proves every stack bound (the wide depth of the tables). A walk
 // that would pass it fails a device-side assert, so a launch never reads a
@@ -40,7 +40,6 @@ namespace trace {
 constexpr float T_EPS = 0.001f;
 constexpr float T_INF = 1e30f;
 constexpr int WIDTH = 8;
-constexpr int MAX_STACK = 256;
 constexpr int ROW = 128;        // floats per packed leaf row
 constexpr int ROW_SLOTS = 8;    // primitives per leaf row
 constexpr int TRI_STRIDE = 12;  // v0(3) e1(3) e2(3) prim_id pad(2)
@@ -99,6 +98,14 @@ __device__ __forceinline__ bool slab6(float x0, float y0, float z0, float x1,
 __device__ __forceinline__ bool slab(const float* __restrict__ b, const Ray& r,
                                      float t_b) {
   return slab6(b[0], b[1], b[2], b[3], b[4], b[5], r, t_b);
+}
+
+// Word j (0..7) of the pair of 16-byte words (a, b), by selects: a dynamic
+// index into a register array would go through local memory.
+__device__ __forceinline__ int word_of(const int4& a, const int4& b, int j) {
+  const int4 v = j < 4 ? a : b;
+  const int k = j & 3;
+  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
 }
 
 // Moller-Trumbore in the operation order of ops/intersect.intersect_triangle;

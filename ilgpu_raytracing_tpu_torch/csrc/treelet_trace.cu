@@ -11,9 +11,12 @@
 // its t_max. It writes (t, pp) with pp = -1 where no hit below t_max was
 // found, pp = prim | (inst*4 + kind) << 20 otherwise.
 //
-// Each treelet walk is WideWalker::walk (wide_walker.cuh), the walk of K1,
-// started from a treelet root instead of an instance root; the loop over the
-// mask is treelet_kernel in trace_common.cuh, shared with K8.
+// Each treelet walk is the closest-hit walk of K1 (node_walk.cuh over the
+// WideNodes reader of wide_nodes.cuh), started from a treelet root instead of
+// an instance root, on a node-group stack in shared memory bounded by the
+// extended tables' wide depth; the loop over the mask is treelet_kernel in
+// trace_common.cuh, shared with K8. Both walks keep the plain walk's test
+// order, so a round equals K1 and round_plain bit for bit.
 //
 // What bounds it on an H100: as K1, the latency of dependent node and leaf
 // loads along each lane's walk; a lane walks several treelets of one
@@ -26,7 +29,7 @@
 // says which treelets to enter. Nothing else is done: the round is as fast
 // as the walks it contains (speed is later work).
 
-#include "wide_walker.cuh"
+#include "wide_nodes.cuh"
 
 namespace {
 
@@ -40,18 +43,19 @@ const char* treelet_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int treelet_max_stack() { return trace::MAX_STACK; }
+int treelet_max_depth() { return trace::MAX_DEPTH; }
 
-// One K7 round. mask (packets,) i32; t_root/t_inst (T+1,), t_w2o ((T+1)*12,);
-// t_out/pp_out (n,); work (2,) zeroed or null.
+// One K7 round. nodes (W, 64) int32 records of the extended tables, as K1's;
+// depth_cap their wide depth; mask (packets,) i32; t_root/t_inst (T+1,),
+// t_w2o ((T+1)*12,); t_out/pp_out (n,); work (2,) zeroed or null.
 int treelet_trace(const float* o, const float* d, const float* tmax, int n,
-                  const float* wb, const int* wc, const int* wp,
-                  const float* tri_rows, const float* sph_rows, int leaf_width,
-                  int stack_cap, const int* mask, int lanes_per_packet,
+                  const int* nodes, const float* tri_rows, const float* sph_rows,
+                  int leaf_width, int depth_cap, const int* mask, int lanes_per_packet,
                   const int* t_root, const int* t_inst, const float* t_w2o,
                   int n_treelets, int all_identity, float* t_out, int* pp_out,
                   unsigned long long* work, void* stream) {
-  const trace::WideWalker wk{wb, wc, wp, tri_rows, sph_rows, leaf_width, stack_cap};
+  const trace::NodeGroupWalker<trace::WideNodes> wk{
+      {reinterpret_cast<const int4*>(nodes), tri_rows, sph_rows, leaf_width}, depth_cap};
   return trace::launch_treelets(o, d, tmax, n, wk, mask, lanes_per_packet, t_root,
                                 t_inst, t_w2o, n_treelets, all_identity,
                                 PP_PRIM_BITS, t_out, pp_out, work, stream);

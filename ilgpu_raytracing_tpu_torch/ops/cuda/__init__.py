@@ -46,8 +46,8 @@ def _nvcc() -> str:
 
 # headers under csrc/ included by the sources; they are part of every
 # library's build hash, so editing one rebuilds the libraries
-HEADERS = ("trace_common.cuh", "wide_walker.cuh", "stream_nodes.cuh",
-           "stream_closest.cuh", "stream_anyhit.cuh")
+HEADERS = ("trace_common.cuh", "node_walk.cuh", "wide_nodes.cuh",
+           "stream_nodes.cuh", "stream_anyhit.cuh")
 
 
 def load_kernel_library(name: str):

@@ -59,6 +59,7 @@ inline const char* cudaGetErrorString(cudaError_t) { return ""; }
 inline float4 __ldg(const float4* p) { return *p; }
 inline int4 __ldg(const int4* p) { return *p; }
 inline int __ldg(const int* p) { return *p; }
+inline float __ldg(const float* p) { return *p; }
 inline float __int_as_float(int v) { float f; std::memcpy(&f, &v, sizeof f); return f; }
 inline int __ffs(int v) { return __builtin_ffs(v); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }

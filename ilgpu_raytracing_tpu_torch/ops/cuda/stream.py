@@ -56,6 +56,7 @@ from ilgpu_raytracing_tpu_torch.ops.cuda.wide import (
     _scene_needs_bary,
     _stack_bound,
     _wide_depth,
+    check_walk_tables,
     launch_walk,
     plain_closest_packed,
 )
@@ -112,7 +113,7 @@ class StreamScene:
 
     @property
     def thread_stack(self) -> int:
-        """The plain walk's per-lane DFS bound (wide._thread_stack_bound)."""
+        """The plain walk's per-lane DFS bound (as WideScene.thread_stack)."""
         return 7 * self.wide_depth + 1
 
 
@@ -439,30 +440,13 @@ def library():
     return _state["lib"], 0.0
 
 
-def check_walk_tables(ss: StreamScene, max_depth: int, label: str) -> None:
-    """Refuse, before any launch, tables a node-group walk cannot take: a
-    wide depth above the `max_depth` entries its stack holds, node ids that
-    overflow the 23 bits of a stack entry, records or leaf rows not 16-byte
-    aligned."""
-    if ss.wide_depth > max_depth:
-        raise ValueError(
-            f"{label}: wide BVH of depth {ss.wide_depth}; the node-group stack "
-            f"holds {max_depth} levels")
-    nodes = ss.anyhit_nodes
-    if nodes.shape[0] >= 1 << 23:
-        raise ValueError(
-            f"{label}: {nodes.shape[0]} wide nodes overflow the 23-bit stack entry")
-    if nodes.data_ptr() % 16 or ss.tri_rows.data_ptr() % 16 or ss.sph_rows.data_ptr() % 16:
-        raise ValueError(f"{label}: node records and leaf rows must be 16-byte aligned")
-
-
 def _launch_anyhit(ss: StreamScene, o, d, t_max, work=None, warp_max=None):
     """K5 on the rays: (occ,). With `work` (2 zeroed int64) and `warp_max`
     (`_warp_slots`: a zeroed int32 per 32 rays, enough for any warp) the counting
     variant runs and adds the boxes and primitives tested to `work` and
     each lane's boxes + primitives to its warp's max slot."""
     lib, _ = library()
-    check_walk_tables(ss, lib.stream_max_depth(), "stream any-hit")
+    check_walk_tables(ss, ss.anyhit_nodes, lib.stream_max_depth(), "stream any-hit")
     n = o.shape[0]
     occ = torch.empty((n,), dtype=torch.bool, device=o.device)
     err = lib.stream_trace_anyhit(
@@ -482,7 +466,7 @@ def _launch(ss: StreamScene, o, d, t_max, any_hit: bool, work=None):
         return _launch_anyhit(ss, o, d, t_max, work,
                               None if work is None else _warp_slots(o))
     lib, _ = library()
-    check_walk_tables(ss, lib.stream_max_depth(), "stream trace")
+    check_walk_tables(ss, ss.anyhit_nodes, lib.stream_max_depth(), "stream trace")
     tables = [
         ss.anyhit_nodes.data_ptr(), ss.wide_perm.data_ptr(),
         ss.tri_rows.data_ptr(), ss.sph_rows.data_ptr(),

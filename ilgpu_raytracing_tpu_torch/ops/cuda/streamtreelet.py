@@ -33,7 +33,6 @@ from ilgpu_raytracing_tpu_torch.ops.cuda.stream import (
     SPP_PRIM_BITS,
     StreamScene,
     _quantize_bounds,
-    check_walk_tables,
 )
 from ilgpu_raytracing_tpu_torch.ops.cuda.wide import (
     _EMPTY,
@@ -42,6 +41,7 @@ from ilgpu_raytracing_tpu_torch.ops.cuda.wide import (
     _is_identity,
     _stack_bound,
     _wide_depth,
+    check_walk_tables,
 )
 
 TILE_ROWS = 16  # packet = TILE_ROWS * 128 sorted lanes (the JAX default)
@@ -230,7 +230,8 @@ def library():
 def _launch(sts: StreamTreeletScene, mask, o, d, t_max, tile_rows, work=None):
     lib, _ = library()
     s = sts.sscene
-    check_walk_tables(s, lib.streamtreelet_max_depth(), "stream treelet round")
+    check_walk_tables(s, s.anyhit_nodes, lib.streamtreelet_max_depth(),
+                      "stream treelet round")
     tables = [s.anyhit_nodes.data_ptr(), s.wide_perm.data_ptr(), s.tri_rows.data_ptr(),
               s.sph_rows.data_ptr(), s.wide_depth]
     if work is None:

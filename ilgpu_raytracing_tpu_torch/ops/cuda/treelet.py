@@ -9,9 +9,10 @@ Host side (numpy, tables identical to the JAX package's):
   walkable root per bin (synthetic 8-wide wrapper nodes appended to the
   tables);
 * `prepare_treelets`: the `TreeletScene` of a `WideScene` -- the extended
-  node tables, per treelet its root, instance encoding, world->object
-  affine and object-space box, the TPU frontier stack bound, and the
-  per-thread DFS bound re-derived over the treelet roots;
+  node tables (and their packed node records), per treelet its root,
+  instance encoding, world->object affine and object-space box, the TPU
+  frontier stack bound, and the wide depth re-derived over the treelet
+  roots;
 * `treelet_from_numpy`: the same scene from the JAX `TreeletScene`'s arrays.
 
 Device side: `run_treelet_trace` is one visit round (ops/treelet.py drives
@@ -19,7 +20,7 @@ the rounds): lane i of the sorted rays walks the treelets set in its
 packet's want mask, packet = i // (tile_rows * 128). On CUDA tensors it
 launches K7, on CPU tensors it runs the plain version, a per-lane loop over
 the mask's treelets around `plain_walk`, the plain form of the kernels'
-8-wide walk (wide_walker.cuh, stream_closest.cuh) from a given root.
+8-wide closest walk (node_walk.cuh) from a given root.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ from ilgpu_raytracing_tpu_torch.ops.cuda.wide import (
     _is_identity,
     _octant_perms,
     _stack_bound,
-    _thread_stack_bound,
+    _wide_depth,
+    check_walk_tables,
 )
 from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
 from ilgpu_raytracing_tpu_torch.ops.traverse import KIND_SPHERE, KIND_TRI
@@ -311,7 +313,7 @@ def treelet_from_numpy(tables: dict, wscene: WideScene) -> TreeletScene:
         wide_perm=t("wide_perm", torch.int32),
         stack_cap=int(tables["stack_cap"]),
         # the instance walks (K1 cleanup) and the treelet walks
-        thread_stack=_thread_stack_bound(wc_all, [m[1] for m in wscene.meta] + roots),
+        wide_depth=_wide_depth(wc_all, [m[1] for m in wscene.meta] + roots),
     )
     return TreeletScene(
         wscene=ws,
@@ -328,10 +330,9 @@ def treelet_from_numpy(tables: dict, wscene: WideScene) -> TreeletScene:
 
 def treelet_arrays(ts: TreeletScene) -> tuple:
     """The device tables one K7 round reads: treelet root / instance /
-    affine tables, then the wide node and leaf tables."""
+    affine tables, then the packed node records and the leaf rows."""
     w = ts.wscene
-    return (ts.t_root, ts.t_inst, ts.t_w2o, w.wide_child, w.wide_bounds,
-            w.wide_perm, w.tri_rows, w.sph_rows)
+    return (ts.t_root, ts.t_inst, ts.t_w2o, w.nodes, w.tri_rows, w.sph_rows)
 
 
 # ------------------------------------------------------------- plain walks
@@ -353,8 +354,8 @@ def wide_leaf(leaf_width: int):
 
 def plain_walk(wc, wp, boxes, leaf, rows_tbl, is_tri: bool, root: int, o, d,
                inst_bits: int, t_best, pp, stack_cap: int):
-    """The 8-wide walk of wide_walker.cuh / stream_closest.cuh for every lane
-    at once, from one `root` (closest hit): each lane pops its own stack,
+    """The plain form of the kernels' 8-wide closest walk (node_walk.cuh) for
+    every lane at once, from one `root`: each lane pops its own stack,
     tests the children in the order of its own direction octant, tests a
     hit leaf at once (the first accepted minimum, which is what the kernel's
     sequential `t < t_best` keeps) and pushes hit inner children far-first.
@@ -492,9 +493,9 @@ def library():
         lib, seconds = cu.load_kernel_library("treelet_trace")
         lib.treelet_trace.restype = cu.CI
         lib.treelet_trace.argtypes = (
-            [cu.VP, cu.VP, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.VP, cu.VP, cu.CI,
-             cu.CI, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.CI, cu.CI] + [cu.VP] * 4)
-        lib.treelet_max_stack.restype = cu.CI
+            [cu.VP, cu.VP, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.CI, cu.CI, cu.VP,
+             cu.CI, cu.VP, cu.VP, cu.VP, cu.CI, cu.CI] + [cu.VP] * 4)
+        lib.treelet_max_depth.restype = cu.CI
         _state["lib"] = lib
         return lib, seconds
     return _state["lib"], 0.0
@@ -521,15 +522,9 @@ def launch_round(lib, prefix: str, tables: list, o, d, t_max, mask, tile_rows: i
 def _launch(ts: TreeletScene, mask, o, d, t_max, tile_rows, work=None):
     lib, _ = library()
     w = ts.wscene
-    if w.thread_stack > lib.treelet_max_stack():
-        raise ValueError(
-            f"treelet walk needs a {w.thread_stack}-entry per-thread stack; the "
-            f"kernel holds {lib.treelet_max_stack()}")
-    if w.tri_rows.data_ptr() % 16 or w.sph_rows.data_ptr() % 16:
-        raise ValueError("treelet round: leaf rows must be 16-byte aligned")
-    tables = [w.wide_bounds.data_ptr(), w.wide_child.data_ptr(), w.wide_perm.data_ptr(),
-              w.tri_rows.data_ptr(), w.sph_rows.data_ptr(), w.leaf_width,
-              w.thread_stack]
+    check_walk_tables(w, w.nodes, lib.treelet_max_depth(), "treelet round")
+    tables = [w.nodes.data_ptr(), w.tri_rows.data_ptr(), w.sph_rows.data_ptr(),
+              w.leaf_width, w.wide_depth]
     if work is None:
         LAUNCHES["treelet"] += 1
     return launch_round(lib, "treelet", tables, o, d, t_max, mask, tile_rows,

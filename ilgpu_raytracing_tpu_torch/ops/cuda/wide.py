@@ -9,8 +9,11 @@ Host side (numpy), ported from the JAX package:
   frontier stack bound, the barycentric epilogue tables.
 Tables are identical to the JAX package's. The static `meta` tuple also
 becomes a device instance table (`inst_i`: kind, wide root, inst_id,
-is-identity; `inst_f`: w2o 12 floats, world bounds 6 floats), and the
-per-thread DFS stack bound (7 * wide depth + 1) is derived for the kernel.
+is-identity; `inst_f`: w2o 12 floats, world bounds 6 floats), and the wide
+depth is derived for the kernels: their node-group stacks hold `depth`
+entries (the plain walk's per-lane DFS bound is 7 * depth + 1). The kernels
+read the node tables packed into one 256-byte record per node, `nodes`
+(`pack_wide_nodes`).
 
 Device side: `trace_closest_wide_packed` (K1) and `shadow_occlusion_wide`
 (K2) launch the CUDA kernels on CUDA tensors and run their plain versions
@@ -218,13 +221,6 @@ def _wide_depth(wc_all: np.ndarray, roots) -> int:
     return int(max(depth[list(roots)]))
 
 
-def _thread_stack_bound(wc_all: np.ndarray, roots) -> int:
-    """Per-thread DFS bound: a pop pushes at most 8 children, so along the
-    deepest root-to-leaf chain of `depth` inner wide nodes the stack holds
-    at most 7 pending siblings per level above plus 8: 7 * depth + 1."""
-    return 7 * _wide_depth(wc_all, roots) + 1
-
-
 def _leaf_enc(first: int, count: int) -> int:
     return -(first * 16 + count) - 2
 
@@ -264,9 +260,34 @@ class WideScene:
     scene: SceneData  # the plain versions trace this
     meta: tuple = ()
     stack_cap: int = 256  # TPU frontier bound (table parity with the JAX prep)
-    thread_stack: int = 1  # per-thread DFS bound passed to the kernels
+    wide_depth: int = 0  # most inner wide nodes on a root-to-leaf chain
     leaf_width: int = WIDTH
     needs_bary: bool = True
+    # (W, 64) i32 node records of K1, K2 and K7, derived from the wide tables
+    nodes: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.nodes = pack_wide_nodes(self.wide_bounds, self.wide_child, self.wide_perm)
+
+    @property
+    def thread_stack(self) -> int:
+        """The plain walk's per-lane DFS bound: a pop pushes at most 8
+        children, so along the deepest root-to-leaf chain of `wide_depth`
+        inner nodes the stack holds at most 7 pending siblings per level
+        above plus 8: 7 * wide_depth + 1."""
+        return 7 * self.wide_depth + 1
+
+
+def pack_wide_nodes(wide_bounds, wide_child, wide_perm) -> torch.Tensor:
+    """The node table of K1, K2 and K7 (csrc/wide_nodes.cuh): per wide node
+    one 256-byte record of 64 int32 words, the 48 child-box floats (as
+    float32 bits) slot-major by axis (xlo of slots 0..7, then ylo, zlo, xhi,
+    yhi, zhi), the 8 child words and the 8 per-octant order words, on the
+    tables' device."""
+    w = wide_child.numel() // WIDTH
+    boxes = wide_bounds.view(w, WIDTH, 6).transpose(1, 2).contiguous()
+    return torch.cat([boxes.view(torch.int32).view(w, 48), wide_child.view(w, WIDTH),
+                      wide_perm.view(w, WIDTH)], dim=1).contiguous()
 
 
 def _is_identity(w2o) -> bool:
@@ -407,7 +428,6 @@ def wide_from_numpy(tables: dict, scene: SceneData) -> WideScene:
         for k, r, w2o, wb, i in tables["meta"]
     )
     wc_all = np.asarray(tables["wide_child"], np.int32).reshape(-1, WIDTH)
-    thread_stack = _thread_stack_bound(wc_all, [m[1] for m in meta])
     inst_i, inst_f = _instance_tables(meta, dev)
 
     def t(name, dtype):
@@ -427,7 +447,7 @@ def wide_from_numpy(tables: dict, scene: SceneData) -> WideScene:
         scene=scene,
         meta=meta,
         stack_cap=int(tables["stack_cap"]),
-        thread_stack=thread_stack,
+        wide_depth=_wide_depth(wc_all, [m[1] for m in meta]),
         leaf_width=int(tables["leaf_width"]),
         needs_bary=bool(tables["needs_bary"]),
     )
@@ -442,13 +462,12 @@ def library():
     """(CDLL, build seconds) of csrc/wide_trace.cu, built at first use."""
     if "lib" not in _state:
         lib, seconds = cu.load_kernel_library("wide_trace")
-        common = [cu.VP, cu.VP, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.VP, cu.VP,
-                  cu.VP, cu.VP, cu.CI, cu.CI, cu.CI]
+        common = [cu.VP, cu.VP, cu.VP, cu.CI] + [cu.VP] * 5 + [cu.CI] * 3
         lib.wide_trace_closest.restype = cu.CI
         lib.wide_trace_closest.argtypes = common + [cu.VP] * 4
         lib.wide_trace_shadow.restype = cu.CI
         lib.wide_trace_shadow.argtypes = common + [cu.VP] * 3
-        lib.wide_max_stack.restype = cu.CI
+        lib.wide_max_depth.restype = cu.CI
         _state["lib"] = lib
         return lib, seconds
     return _state["lib"], 0.0
@@ -498,24 +517,34 @@ def launch_walk(lib, prefix: str, tables: list, stack_bound: int, o, d, t_max,
     return out
 
 
+def check_walk_tables(ks, nodes: torch.Tensor, max_depth: int, label: str) -> None:
+    """Refuse, before any launch, tables a node-group walk cannot take: a
+    wide depth (`ks.wide_depth`) above the `max_depth` entries its stack
+    holds, node ids that overflow the 23 bits of a stack entry, node
+    records or leaf rows (`ks.tri_rows`, `ks.sph_rows`) not 16-byte
+    aligned."""
+    if ks.wide_depth > max_depth:
+        raise ValueError(
+            f"{label}: wide BVH of depth {ks.wide_depth}; the node-group stack "
+            f"holds {max_depth} levels")
+    if nodes.shape[0] >= 1 << 23:
+        raise ValueError(
+            f"{label}: {nodes.shape[0]} wide nodes overflow the 23-bit stack entry")
+    if nodes.data_ptr() % 16 or ks.tri_rows.data_ptr() % 16 or ks.sph_rows.data_ptr() % 16:
+        raise ValueError(f"{label}: node records and leaf rows must be 16-byte aligned")
+
+
 def _launch(ws: WideScene, o, d, t_max, any_hit: bool, work=None):
     lib, _ = library()
-    if ws.thread_stack > lib.wide_max_stack():
-        raise ValueError(
-            f"wide BVH needs a {ws.thread_stack}-entry per-thread stack; the "
-            f"kernel holds {lib.wide_max_stack()}"
-        )
-    if ws.tri_rows.data_ptr() % 16 or ws.sph_rows.data_ptr() % 16:
-        raise ValueError("wide trace: leaf rows must be 16-byte aligned")
+    check_walk_tables(ws, ws.nodes, lib.wide_max_depth(), "wide trace")
     tables = [
-        ws.wide_bounds.data_ptr(), ws.wide_child.data_ptr(),
-        ws.wide_perm.data_ptr(), ws.tri_rows.data_ptr(), ws.sph_rows.data_ptr(),
+        ws.nodes.data_ptr(), ws.tri_rows.data_ptr(), ws.sph_rows.data_ptr(),
         ws.inst_i.data_ptr(), ws.inst_f.data_ptr(), ws.inst_i.shape[0],
         ws.leaf_width,
     ]
     if work is None:
         LAUNCHES["wide_shadow" if any_hit else "wide_closest"] += 1
-    return launch_walk(lib, "wide", tables, ws.thread_stack, o, d, t_max,
+    return launch_walk(lib, "wide", tables, ws.wide_depth, o, d, t_max,
                        any_hit, work)
 
 

@@ -82,7 +82,8 @@ def _refuse_unported(scene: SceneData, n_pixels: int, chunk_target: int) -> None
     if _pick_n_chunks(n_pixels, chunk_target) > 1:
         raise NotImplementedError(
             f"chunked integration ({n_pixels} px above chunk_pixels="
-            f"{chunk_target}): ROADMAP Queue 1, large scenes / chunking"
+            f"{chunk_target}): ROADMAP Queue 1 item 4, integrator settings that "
+            "raise (chunking)"
         )
 
 
@@ -461,11 +462,11 @@ def path_trace(scene: SceneData, gb: GBuffer, camera, prev_camera, res_prev,
     (primary rays excluded). `frame` and `noise_key` are host integers."""
     if cfg.deferred_shadows:
         raise NotImplementedError(
-            "deferred_shadows: ROADMAP Queue 1, non-default integrator knobs"
+            "deferred_shadows: ROADMAP Queue 1 item 4, integrator settings that raise"
         )
     if cfg.spp_pixel_major:
         raise NotImplementedError(
-            "spp_pixel_major: ROADMAP Queue 1, non-default integrator knobs"
+            "spp_pixel_major: ROADMAP Queue 1 item 4, integrator settings that raise"
         )
     n = width * height
     target = cfg.chunk_pixels

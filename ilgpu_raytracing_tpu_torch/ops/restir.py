@@ -267,8 +267,8 @@ def restir_direct(
     pixel and tiled. `frame` is the host frame index."""
     if reps_pixel_major:
         raise NotImplementedError(
-            "spp_pixel_major lane layout: ROADMAP Queue 1, non-default "
-            "integrator knobs"
+            "spp_pixel_major lane layout: ROADMAP Queue 1 item 4, integrator "
+            "settings that raise"
         )
     total = local_candidates + delta_candidates
     mix_local = float(local_candidates) / float(total)

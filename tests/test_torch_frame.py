@@ -242,5 +242,10 @@ def test_renderer_on_cpu_and_refusals(scenes, tmp_path):
                                device="cpu")
     with pytest.raises(NotImplementedError):
         alpha.render()
+    # chunking refers to the open ROADMAP item that ports it
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP Queue 1 item 4, integrator settings that raise "
+                             r"\(chunking\)"):
+        tint._refuse_unported(ts, 4 * 4096, 4096)
     with pytest.raises(NotImplementedError):
         trenderer.Renderer(OUT, OUT, mesh=object(), device="cpu")

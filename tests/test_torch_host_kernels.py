@@ -11,11 +11,13 @@ holds them to on the card). K5, with a tenth of the lanes inactive, also
 equals the plain walk and K4's hit mask at t_max 5 and 1e29 on the small
 terrain and the leaf-64 Cornell box. K6, K7 and K8 are held to their own plain
 versions bit for bit: every output of K6, and t / pp of one treelet round on
-random want masks. K4 also equals, bit for bit in t and pp, the plain walk
-in its own test order (`treelet.plain_walk` from each instance's root): the
-order on which K8 = K4 on the card depends. The wrappers refuse, before any
-launch, tables deeper than the node-group stacks hold, and a walk past its
-stack bound fails the kernel's assert (in a child process). This checks the
+random want masks. K4 and K1 also equal, bit for bit in t and pp, the plain
+walk in its own test order (`treelet.plain_walk` from each instance's
+root): the order on which K8 = K4 and K7 = K1 on the card depend. The
+wrappers of K1, K2, K4, K5, K7 and K8 refuse, before any launch, tables
+deeper than the node-group stacks hold, and a K4 or K1 walk past its stack
+bound fails the kernel's assert (in a child process). K1's packed node
+record equals the flat wide tables field by field. This checks the
 kernels' logic; what nvcc accepts, and speed, show only on the card."""
 
 import copy
@@ -24,6 +26,7 @@ import resource
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -160,31 +163,38 @@ def test_host_built_k5_equals_the_plain_walk_and_k4(host, case):
     assert stream.LAUNCHES["stream_shadow"] - launches == 4
 
 
-def _plain_order_walk(ss, o, d):
-    """K4's result in the plain walk's own test order: `treelet.plain_walk`
-    from each instance's root, in instance order, carrying t_best and pp."""
+def _plain_order_walk(ks, o, d):
+    """K4's (StreamScene) or K1's (WideScene) result in the plain walk's own
+    test order: `treelet.plain_walk` from each instance's root, in instance
+    order, carrying t_best and pp."""
     n = o.shape[0]
     t_best = torch.full((n,), T_INF)
     pp = torch.full((n,), -1, dtype=torch.int32)
-    boxes = streamtreelet.stream_boxes(ss.wide_frame, ss.wide_qbounds)
-    for entry in ss.meta:
+    if isinstance(ks, stream.StreamScene):
+        boxes = streamtreelet.stream_boxes(ks.wide_frame, ks.wide_qbounds)
+        leaf, prim_bits = streamtreelet.stream_leaf, stream.SPP_PRIM_BITS
+    else:
+        boxes = treelet.wide_boxes(ks.wide_bounds)
+        leaf, prim_bits = treelet.wide_leaf(ks.leaf_width), wide.PP_PRIM_BITS
+    for entry in ks.meta:
         kind, root, w2o = entry[0], entry[1], entry[2]
         is_tri = kind == BLAS_TRI_MESH
         ro, rd = o, d
         if not wide._is_identity(w2o):
             ro, rd = binary.transform(torch.tensor(w2o, dtype=torch.float32), o, d)
-        treelet.plain_walk(ss.wide_child, ss.wide_perm, boxes, streamtreelet.stream_leaf,
-                           ss.tri_rows if is_tri else ss.sph_rows, is_tri, root, ro, rd,
-                           treelet._inst_enc(entry) << stream.SPP_PRIM_BITS, t_best, pp,
-                           ss.thread_stack)
+        treelet.plain_walk(ks.wide_child, ks.wide_perm, boxes, leaf,
+                           ks.tri_rows if is_tri else ks.sph_rows, is_tri, root, ro, rd,
+                           treelet._inst_enc(entry) << prim_bits, t_best, pp,
+                           ks.thread_stack)
     return t_best, pp
 
 
 @pytest.mark.parametrize("case", list(ANYHIT_CASES))
 def test_host_built_k4_keeps_the_plain_walk_order(host, case):
-    """K4 (csrc/stream_closest.cuh) equals the order-exact plain walk bit for
-    bit in t and pp on primary and bounce rays: a tie in t goes to the
-    primitive tested first, so equal pp pins the test order."""
+    """K4 (csrc/node_walk.cuh over the quantized records) equals the
+    order-exact plain walk bit for bit in t and pp on primary and bounce
+    rays: a tie in t goes to the primitive tested first, so equal pp pins
+    the test order."""
     build, camera = ANYHIT_CASES[case]
     scene = build()
     ss = stream.prepare_stream(scene)
@@ -200,6 +210,57 @@ def test_host_built_k4_keeps_the_plain_walk_order(host, case):
     assert stream.LAUNCHES["stream_closest"] - launches == 2
 
 
+WIDE_CASES = {
+    "cornell_leaf8": (CASES["cornell_wide"][1], cornell.cornell_camera),
+    "default_spheres": (ROUND_CASES["default_binary_treelet"][1], Camera.create),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_host_built_k1_keeps_the_plain_walk_order(host, case):
+    """K1 (node_walk.cuh over the exact-box records) equals the order-exact
+    plain walk bit for bit in t and pp on primary and bounce rays, as K4
+    does: K7's rounds equal K1 on the card by this order."""
+    build, camera = WIDE_CASES[case]
+    scene = build()
+    ws = wide.prepare_scene(scene)
+    o, d = host.jittered_rays(camera(48, 32), 48, 32, 1)
+    bo, bd = host.bounce_rays(scene, host.primary_hits(wide, ws, o, d), o, d, 2)
+    launches = wide.LAUNCHES["wide_closest"]
+    for ro, rd in ((o, d), (bo, bd)):
+        t_k, pp_k = wide._launch(ws, ro, rd, torch.full((ro.shape[0],), T_INF),
+                                 any_hit=False)
+        t_p, pp_p = _plain_order_walk(ws, ro, rd)
+        assert int((pp_p >= 0).sum()) > 100
+        assert torch.equal(t_k, t_p) and torch.equal(pp_k, pp_p)
+    assert wide.LAUNCHES["wide_closest"] - launches == 2
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_node_records_equal_the_flat_tables(host, case):
+    """K1/K2/K7's packed node table (wide.pack_wide_nodes): per wide node the
+    48 child-box floats slot-major by axis, bit for bit, then the 8 child
+    words and the 8 per-octant order words; rebuilt with the extended tables
+    of a treelet cut."""
+    ws = wide.prepare_scene(WIDE_CASES[case][0]())
+    grown = treelet.prepare_treelets(ws, 8).wscene
+    assert grown.wide_child.numel() >= ws.wide_child.numel()
+    for ks in (ws, grown):
+        w = ks.wide_child.numel() // 8
+        rec = ks.nodes
+        assert rec.dtype == torch.int32 and tuple(rec.shape) == (w, 64)
+        assert rec.is_contiguous() and rec.data_ptr() % 16 == 0
+        rec = rec.numpy()
+        boxes = ks.wide_bounds.numpy().reshape(w, 8, 6)
+        for axis in range(6):  # xlo ylo zlo xhi yhi zhi, 8 slots each
+            np.testing.assert_array_equal(rec[:, 8 * axis: 8 * axis + 8],
+                                          boxes[:, :, axis].view(np.int32))
+        np.testing.assert_array_equal(rec[:, 48:56], ks.wide_child.numpy().reshape(w, 8))
+        np.testing.assert_array_equal(rec[:, 56:64], ks.wide_perm.numpy().reshape(w, 8))
+        assert 1 <= ks.wide_depth <= 36 and ks.thread_stack == 7 * ks.wide_depth + 1
+    assert torch.equal(grown.nodes[:ws.nodes.shape[0]], ws.nodes)
+
+
 @pytest.fixture(scope="module")
 def small_terrain_stream():
     scene = CASES["terrain_stream"][1]()
@@ -207,18 +268,39 @@ def small_terrain_stream():
     return stream.prepare_stream(scene), o, d
 
 
-@pytest.mark.parametrize("kernel", ["K4", "K5", "K8"])
-def test_wrappers_refuse_tables_deeper_than_the_stack(host, small_terrain_stream, kernel):
+@pytest.fixture(scope="module")
+def small_cornell_wide():
+    scene = CASES["cornell_wide"][1]()
+    o, d = host_check.jittered_rays(cornell.cornell_camera(16, 8), 16, 8, 1)
+    return wide.prepare_scene(scene), o, d
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K4", "K5", "K7", "K8"])
+def test_wrappers_refuse_tables_deeper_than_the_stack(host, small_terrain_stream,
+                                                      small_cornell_wide, kernel):
     """A wide depth above the node-group stack's capacity is refused before
     any launch (the kernel's assert is the last line, not the check)."""
     ss, o, d = small_terrain_stream
     tm = torch.full((o.shape[0],), T_INF)
-    if kernel == "K8":
+    mask = torch.full((1,), -1, dtype=torch.int32)
+    if kernel in ("K1", "K2"):
+        ws, o, d = small_cornell_wide
+        deep = copy.copy(ws)
+        deep.wide_depth = wide.library()[0].wide_max_depth() + 1
+        counts = wide.LAUNCHES
+        call = lambda: wide._launch(deep, o, d, tm, any_hit=kernel == "K2")  # noqa: E731
+    elif kernel == "K7":
+        ws, o, d = small_cornell_wide
+        ts = treelet.prepare_treelets(ws, 8)
+        ts.wscene = copy.copy(ts.wscene)
+        ts.wscene.wide_depth = treelet.library()[0].treelet_max_depth() + 1
+        counts = treelet.LAUNCHES
+        call = lambda: treelet._launch(ts, mask, o, d, tm, 1)  # noqa: E731
+    elif kernel == "K8":
         sts = streamtreelet.prepare_treelets_stream(ss, 8)
         cap = streamtreelet.library()[0].streamtreelet_max_depth()
         sts.sscene = copy.copy(sts.sscene)
         sts.sscene.wide_depth = cap + 1
-        mask = torch.full((1,), -1, dtype=torch.int32)
         counts = streamtreelet.LAUNCHES
         call = lambda: streamtreelet._launch(sts, mask, o, d, tm, 1)  # noqa: E731
     else:
@@ -235,28 +317,38 @@ def test_wrappers_refuse_tables_deeper_than_the_stack(host, small_terrain_stream
 
 OVERFLOW_CHILD = """
 import sys, torch
-from ilgpu_raytracing_tpu_torch.models import terrain
+from ilgpu_raytracing_tpu_torch.models import cornell, terrain
 from ilgpu_raytracing_tpu_torch.ops import cuda as cu
-from ilgpu_raytracing_tpu_torch.ops.cuda import host_check, stream
+from ilgpu_raytracing_tpu_torch.ops.cuda import host_check, stream, wide
 import ctypes
 cu.load_kernel_library = lambda name: (ctypes.CDLL(sys.argv[1]), 0.0)
 cu.stream_ptr = lambda t: None
-ss = stream.prepare_stream(terrain.build_terrain_scene(grid_x=64, grid_z=32, device="cpu")[1])
-o, d = host_check.jittered_rays(terrain.terrain_camera(32, 16), 32, 16, 1)
-ss.wide_depth = 0  # no stack entry: the first push must fail the walk's assert
-stream._launch(ss, o, d, torch.full((o.shape[0],), 1e30), any_hit=False)
+if sys.argv[2] == "K4":
+    mod, camera = stream, terrain.terrain_camera
+    ks = stream.prepare_stream(terrain.build_terrain_scene(grid_x=64, grid_z=32,
+                                                           device="cpu")[1])
+else:
+    mod, camera = wide, cornell.cornell_camera
+    ks = wide.prepare_scene(cornell.build_cornell_scene(
+        tess=4, sphere_tess=(8, 12), blas_leaf_size=8, bvh_method="sah", device="cpu")[1])
+o, d = host_check.jittered_rays(camera(32, 16), 32, 16, 1)
+ks.wide_depth = 0  # no stack entry: the first push must fail the walk's assert
+mod._launch(ks, o, d, torch.full((o.shape[0],), 1e30), any_hit=False)
 print("the walk returned")
 """
 
 
-def test_host_built_k4_fails_its_assert_past_the_stack_bound(host):
-    """K4 called with a stack cap of 0 on terrain rays (the small terrain's
-    walks need at most wide depth - 1 entries, so a cap of 1 may hold): the
-    walk's assert ends the process (on the card, the device-side assert fails the next
-    synchronizing call; chip_smoke.py checks that in a child process)."""
-    so = os.path.join(BUILD_DIR, "host", "libstream_trace.so")  # the fixture's build
+@pytest.mark.parametrize("kernel", ["K4", "K1"])
+def test_host_built_k4_fails_its_assert_past_the_stack_bound(host, kernel):
+    """K4 (small terrain) or K1 (leaf-8 Cornell box) called with a stack cap
+    of 0 (the walks need at most wide depth - 1 entries, so a cap of 1 may
+    hold): the walk's assert ends the process (on the card, the device-side
+    assert fails the next synchronizing call; chip_smoke.py checks that in a
+    child process)."""
+    lib = "libstream_trace.so" if kernel == "K4" else "libwide_trace.so"
+    so = os.path.join(BUILD_DIR, "host", lib)  # the fixture's build
     proc = subprocess.run(
-        [sys.executable, "-c", OVERFLOW_CHILD, so], capture_output=True,
+        [sys.executable, "-c", OVERFLOW_CHILD, so, kernel], capture_output=True,
         text=True, timeout=300,  # the abort writes no core file
         preexec_fn=lambda: resource.setrlimit(resource.RLIMIT_CORE, (0, 0)),
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

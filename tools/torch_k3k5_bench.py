@@ -9,8 +9,10 @@ Prints, for the package found in the current directory:
   GPU time of each kernel of the wrapper from torch.profiler;
 - K5 on the 1,802,240 treelet-sorted bounce lanes of the 1,048,576-triangle
   terrain (chip_smoke.py's K4/K5 phase) at t_max 1e29: ms, boxes and
-  primitives tested, and whether its occlusion equals K4's hit mask. K4 on
-  the same lanes is timed as the control that both checkouts share.
+  primitives tested, whether its occlusion equals K4's hit mask, and a
+  digest of the occlusion, so that two checkouts can be held equal bit for
+  bit. K4 on the same lanes is timed as the control that both checkouts
+  share.
 chip_smoke.py prints the ptxas report and K5's SIMD-efficiency count.
 
 To pair two checkouts, run this script from the root of each, in turns, on
@@ -24,6 +26,7 @@ Appends one JSON line of the numbers to --out.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -93,6 +96,7 @@ def bench_k5(cs, out: dict, reps: int) -> None:
     occ = stream.shadow_occlusion_stream(ss, bo, bd, 1e29, active=act)
     k4_hit = stream.trace_closest_stream_packed(ss, bo, bd, active=act, t_max=1e29)[1] >= 0
     n_diff = int((occ != k4_hit).sum())
+    occ_digest = hashlib.sha256(occ.cpu().numpy().tobytes()).hexdigest()[:16]
     times, k4 = [], []
     for _ in range(2):
         times.append(cs.cuda_ms(lambda: stream.shadow_occlusion_stream(
@@ -102,10 +106,11 @@ def bench_k5(cs, out: dict, reps: int) -> None:
     boxes, prims = stream.count_work(ss, bo, bd, tms, any_hit=True)
     print(f"K5 {nb} treelet-sorted terrain bounce lanes ({n_alive} live), t_max 1e29: "
           f"{times[0]:.4f}, {times[1]:.4f} ms; occluded {int(occ.sum())}, differs from "
-          f"K4's hit mask on {n_diff} lanes; {boxes} boxes, {prims} primitives; K4 on "
-          f"the same lanes {k4[0]:.4f}, {k4[1]:.4f} ms", flush=True)
+          f"K4's hit mask on {n_diff} lanes; occlusion digest {occ_digest}; {boxes} "
+          f"boxes, {prims} primitives; K4 on the same lanes {k4[0]:.4f}, {k4[1]:.4f} ms",
+          flush=True)
     out["k5"] = dict(ms=times, k4_ms=k4, occluded=int(occ.sum()), k4_mask_diff=n_diff,
-                     boxes=boxes, prims=prims, lanes=nb, live=n_alive)
+                     digest=occ_digest, boxes=boxes, prims=prims, lanes=nb, live=n_alive)
 
 
 def main() -> int:
