@@ -41,10 +41,17 @@ Phases:
   6. the Cornell main path: one warm-up and 6 timed 1080p frames, each
      copied to the host, with every kernel's launch count checked;
   7. K6 vs its plain version on 65,536-ray subsets of the bench scene's
-     primary rays and sorted bounce lanes (hit masks and t, prim, inst
-     equal on every ray, any-hit equal at t_max 5 and 1e29); K6 timed on
-     the full bounce population, and in turns with K1 and K2 on the same
-     lanes (the route pair: wide against binary tables);
+     primary rays and sorted bounce lanes (hit masks and t, prim, inst,
+     bu, bv equal on every ray, any-hit equal at t_max 5 and 1e29, the
+     counting variant's boxes and primitives equal to the skip walk's);
+     K6 at its deepest stack (454 levels, shared memory opted in) equal to
+     K6; K6 timed on the full bounce population and the primary rays, and
+     in turns with K1 and K2 on the same lanes (the route pair: wide
+     against binary tables); its records' bytes, its stack bound, the
+     bound over the tables it reads and over the flat tables, and ptxas's
+     report of csrc/binary_trace.cu; K6 called with a stack cap of 1 on
+     the bench bounce lanes must fail the walk's device-side assert (in a
+     child process);
   8. a 64x64 Cornell frame pair through the binary route, card vs CPU;
   9. the K6 main path: the 1080p bench frame through `Renderer` with a
      BinaryScene, one warm-up and 3 timed frames with every launch count
@@ -63,7 +70,8 @@ Phases:
      901,120 primary and 1,802,240 bounce lanes; K4 timed on the 901,120
      primary and the full bounce lanes and K5 on the bounce lanes, each
      with the boxes and primitives its counting variant tallies; K5's
-     SIMD-efficiency count; ptxas's report of csrc/stream_trace.cu; K4
+     SIMD-efficiency count; ptxas's report of csrc/stream_trace.cu; the
+     depth of the terrain's binary BVH against K6's stack bound; K4
      called with a stack cap of 1 on the terrain's bounce lanes must fail
      the walk's device-side assert (in a child process);
  13. K8: `trace_closest_treelet_stream_packed` on the terrain's 1,802,240
@@ -89,6 +97,7 @@ python3 chip_smoke.py
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -366,8 +375,9 @@ def phase_k1_k2(dev, results):
         f"{w2[1]} primitives")
     k1_tables = [ws.nodes, ws.tri_rows, ws.sph_rows, ws.inst_i, ws.inst_f,
                  ws.inst_i.shape[0], ws.leaf_width]
+    case = dict(tables=k1_tables, o=bo, d=bd, tm=tmb)
     log(f"K1 with a stack cap of 1 on the bench bounce lanes: the child process failed: "
-        f"{_overflow_fails('K1', 'wide', k1_tables, bo, bd, tmb)}")
+        f"{_overflow_fails('K1', OVERFLOW_CHILD, case, 'wide')}")
     results["wide_closest"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
                                    **trace_bound(nb, w1, False, BOX_OPS, tables),
                                    library_ms=None)
@@ -562,7 +572,9 @@ def phase_main_path(dev, bench):
 def _binary_bar(bs, o, d, label):
     """K6 vs its plain version on one ray set: hit masks equal and t, prim,
     inst equal on every ray (bu, bv too), any-hit equal at t_max 5 and
-    1e29. Returns the max |t_kernel - t_plain| (0 when bit-identical)."""
+    1e29, and the counting variant's (boxes, primitives) equal to those the
+    plain skip walk tests (closest, and any-hit at 1e29). Returns the max
+    |t_kernel - t_plain| (0 when bit-identical)."""
     from ilgpu_raytracing_tpu_torch.ops.cuda import binary
     from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
 
@@ -584,8 +596,17 @@ def _binary_bar(bs, o, d, label):
         occ_k = binary.shadow_occlusion_binary(bs, o, d, tt)
         n_diff = int((occ_k != binary.shadow_plain(bs, o, d, tt)).sum())
         check(n_diff == 0, f"K6 any-hit {label} t_max={t_max}: {n_diff} of {n} differ")
+    counts = []  # the counting variant against the skip walk's boxes and primitives
+    for t_max, any_hit in ((T_INF, False), (1e29, True)):
+        tt = torch.full((n,), t_max, device=o.device)
+        plain = [0, 0]
+        binary._walk_plain(bs, o, d, tt, any_hit, plain)
+        counts.append(binary.count_work(bs, o, d, tt, any_hit))
+        check(list(counts[-1]) == plain, f"K6 {label} any_hit={any_hit}: the counting "
+              f"variant counts {counts[-1]}, the skip walk tests {plain}")
     log(f"K6 {label} n={n}: hits {int(hit_k.sum())}, hit masks equal, t/prim/inst/bu/bv "
-        f"equal to plain on every ray, any-hit equal at t_max 5 and 1e29 "
+        f"equal to plain on every ray, any-hit equal at t_max 5 and 1e29; counts equal "
+        f"to the skip walk's (closest {counts[0]}, any-hit {counts[1]}) "
         f"({time.monotonic() - t0:.2f} s)")
     return err
 
@@ -613,19 +634,39 @@ def route_pair(ws, bs, bo, bd, act, tmb, tms, n_alive):
 
 def phase_k6(dev, results, bench):
     """K6 on the bench scene's primary rays and sorted bounce lanes."""
+    from ilgpu_raytracing_tpu_torch.ops import cuda as cu
     from ilgpu_raytracing_tpu_torch.ops.cuda import binary
     from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
 
+    for line in cu.ptxas_info("binary_trace"):
+        log(f"ptxas binary_trace.cu: {line}")
     t0 = time.monotonic()
     bs = binary.prepare_binary(bench["scene"])
+    cap = binary.library()[0].binary_max_depth()
     log(f"K6 tables: {bs.nodes.shape[0]} nodes, {bs.tri.shape[0]} triangle leaf rows, "
-        f"prep {time.monotonic() - t0:.2f} s")
+        f"{bs.pairs.shape[0]} child-pair records ({bs.pairs.numel() * 4} B), "
+        f"{bs.roots.shape[0]} root records ({bs.roots.numel() * 4} B), depth {bs.depth} "
+        f"(cap {cap}; shared stack {bs.depth} x 128 x 4 B a block), prep "
+        f"{time.monotonic() - t0:.2f} s")
     o, d = bench["o"], bench["d"]
     bo, bd, act, n_alive = bench["bo"], bench["bd"], bench["act"], bench["n_alive"]
     n = o.shape[0]
     err = _binary_bar(bs, _strided(o, n, SUBSET), _strided(d, n, SUBSET), "primary")
     so, sd = _strided(bo, n_alive, SUBSET), _strided(bd, n_alive, SUBSET)
     err = max(err, _binary_bar(bs, so, sd, "bounce (sorted, live lanes)"))
+    # the deepest stack the kernel takes: cap x 128 x 4 B of shared memory a
+    # block, past the 48 KB a launch gets without opting in
+    deep = dataclasses.replace(bs, depth=cap)
+    stm = torch.full((SUBSET,), T_INF, device=dev)
+    same = all(bool(torch.equal(a, b)) for a, b in
+               zip(binary.trace_binary_raw(deep, so, sd, stm),
+                   binary.trace_binary_raw(bs, so, sd, stm)))
+    same = same and bool(torch.equal(
+        binary.shadow_occlusion_binary(deep, so, sd, stm),
+        binary.shadow_occlusion_binary(bs, so, sd, stm)))
+    check(same, f"K6 with a stack bound of {cap} differs from K6 at depth {bs.depth}")
+    log(f"K6 with a stack bound of {cap} ({cap * 128 * 4} B of shared memory a block): "
+        f"closest and any-hit equal to K6 at depth {bs.depth} on {SUBSET} bounce lanes")
     nb = bo.shape[0]
     tmb = torch.where(act, torch.full((nb,), T_INF, device=dev), torch.zeros(nb, device=dev))
     tms = torch.where(act, torch.full((nb,), 1e29, device=dev), torch.zeros(nb, device=dev))
@@ -634,17 +675,26 @@ def phase_k6(dev, results, bench):
     ms_p = cuda_ms(lambda: binary.trace_binary_raw(bs, o, d, torch.full((n,), T_INF,
                                                                          device=dev)), 10)
     route_pair(bench["ws"], bs, bo, bd, act, tmb, tms, n_alive)
-    stm = torch.full((SUBSET,), T_INF, device=dev)
     plain_c = cuda_ms(lambda: binary.trace_plain(bs, so, sd, stm), 1)
     plain_s = cuda_ms(lambda: binary.shadow_plain(bs, so, sd, torch.full_like(stm, 1e29)), 1)
     log(f"K6 bounce {nb} lanes ({n_alive} live): closest {ms_c:.4f} ms, any-hit "
         f"{ms_s:.4f} ms; primary {n} lanes: closest {ms_p:.4f} ms; plain on {SUBSET} "
         f"live bounce lanes: closest {plain_c:.4f} ms, any-hit {plain_s:.4f} ms")
-    tables = (bs.nodes, bs.node_i, bs.tri, bs.sph, bs.inst_i, bs.inst_f)
+    # what the kernel reads: the records, the leaf rows and the instance
+    # tables; `flat`: the flat tables that the skip walk (the parent) read
+    tables = (bs.pairs, bs.roots, bs.tri, bs.sph, bs.inst_i, bs.inst_f)
+    flat = (bs.nodes, bs.node_i, bs.tri, bs.sph, bs.inst_i, bs.inst_f)
     w_c = binary.count_work(bs, bo, bd, tmb, any_hit=False)
     w_s = binary.count_work(bs, bo, bd, tms, any_hit=True)
-    log(f"K6 bounce work: closest {w_c[0]} boxes, {w_c[1]} primitives; any-hit {w_s[0]} "
-        f"boxes, {w_s[1]} primitives")
+    log(f"K6 bounce work: closest {w_c[0]} boxes, {w_c[1]} primitives, bound "
+        f"{trace_bound(nb, w_c, False, BOX_OPS, tables, 20)} (over the flat tables "
+        f"{trace_bound(nb, w_c, False, BOX_OPS, flat, 20)}); any-hit {w_s[0]} boxes, "
+        f"{w_s[1]} primitives, bound {trace_bound(nb, w_s, True, BOX_OPS, tables)} "
+        f"(over the flat tables {trace_bound(nb, w_s, True, BOX_OPS, flat)})")
+    case = dict(bs={f: getattr(bs, f) for f in bs.__dataclass_fields__}, o=bo, d=bd,
+                tm=tmb)
+    log(f"K6 with a stack cap of 1 on the bench bounce lanes: the child process failed: "
+        f"{_overflow_fails('K6', K6_OVERFLOW_CHILD, case)}")
     results["binary_closest"] = dict(max_abs_err=err, ms=ms_c, plain_ms=plain_c,
                                      **trace_bound(nb, w_c, False, BOX_OPS, tables, 20),
                                      library_ms=None)
@@ -934,20 +984,33 @@ torch.cuda.synchronize()
 print("the walk returned", int((pp >= 0).sum()), "hits")
 """
 
+K6_OVERFLOW_CHILD = """
+import sys, torch
+from ilgpu_raytracing_tpu_torch.ops.cuda import binary
+x = torch.load(sys.argv[1], map_location="cuda")
+bs = binary.BinaryScene(**x["bs"])
+bs.depth = 1
+prim = binary._launch(bs, x["o"], x["d"], x["tm"], any_hit=False)[1]
+torch.cuda.synchronize()
+print("the walk returned", int((prim >= 0).sum()), "hits")
+"""
 
-def _overflow_fails(label, prefix, tables, o, d, t_max) -> str:
-    """The closest-hit entry of the `prefix` library (K1 "wide", K4
-    "stream") called with a stack cap of 1 (the walks need up to wide depth
-    - 1 entries) on the given lanes, in a child process: the walk's
-    device-side assert must fail the synchronizing call. `tables` are the
-    entry's scene arguments (tensors and ints). Returns the first line of
-    the error that names the assert."""
+
+def _overflow_fails(label, child, case: dict, *args) -> str:
+    """A closest-hit walk called with a stack cap of 1 (K1 and K4 need up
+    to wide depth - 1 entries, K6 up to its depth) in a child process: the
+    walk's device-side assert must fail the synchronizing call. `child` is
+    OVERFLOW_CHILD (the entry of the library `args[0]`, K1 "wide" or K4
+    "stream", with `case` = its scene arguments as tensors and ints, the
+    lanes and t_max) or K6_OVERFLOW_CHILD (`case` = the BinaryScene's
+    fields, the lanes and t_max). Returns the first line of the error that
+    names the assert."""
     from ilgpu_raytracing_tpu_torch.utils.build import BUILD_DIR
 
-    path = os.path.join(BUILD_DIR, f"{prefix}_overflow_case.pt")
-    torch.save(dict(tables=tables, o=o, d=d, tm=t_max), path)
+    path = os.path.join(BUILD_DIR, f"{label}_overflow_case.pt")
+    torch.save(case, path)
     try:
-        proc = subprocess.run([sys.executable, "-c", OVERFLOW_CHILD, path, prefix],
+        proc = subprocess.run([sys.executable, "-c", child, path, *args],
                               capture_output=True, text=True, timeout=300,
                               cwd=os.path.dirname(os.path.abspath(__file__)))
     finally:
@@ -964,11 +1027,15 @@ def phase_k4_k5(dev, results, scene, ss):
     from ilgpu_raytracing_tpu_torch.models.terrain import terrain_camera
     from ilgpu_raytracing_tpu_torch.ops import cuda as cu
     from ilgpu_raytracing_tpu_torch.ops import rays
-    from ilgpu_raytracing_tpu_torch.ops.cuda import stream
+    from ilgpu_raytracing_tpu_torch.ops.cuda import binary, stream
     from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
 
     for line in cu.ptxas_info("stream_trace"):
         log(f"ptxas stream_trace.cu: {line}")
+    depth = binary.tree_depth(scene.blas_ifields.cpu().numpy(),
+                              scene.inst_blas_root.cpu().numpy())[1]
+    log(f"terrain binary BVH ({scene.tri_v0.shape[0]} triangles): depth {depth}; K6's "
+        f"stack holds {binary.library()[0].binary_max_depth()}")
     in_w, in_h = RenderConfig().internal_resolution(1920, 1080)
     o, d = rays.generate_primary_rays(terrain_camera(1920, 1080), in_w, in_h, dev)
     o = o.contiguous()
@@ -1019,8 +1086,9 @@ def phase_k4_k5(dev, results, scene, ss):
     _k5_equals_k4(ss, bo, bd, act, "bounce (treelet-sorted)")
     k4_tables = [ss.anyhit_nodes, ss.wide_perm, ss.tri_rows, ss.sph_rows, ss.inst_i,
                  ss.inst_f, ss.inst_i.shape[0]]
+    case = dict(tables=k4_tables, o=bo, d=bd, tm=tmb)
     log(f"K4 with a stack cap of 1 on the terrain's bounce lanes: the child process "
-        f"failed: {_overflow_fails('K4', 'stream', k4_tables, bo, bd, tmb)}")
+        f"failed: {_overflow_fails('K4', OVERFLOW_CHILD, case, 'stream')}")
     results["stream_closest"] = dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain,
                                      **trace_bound(nb, w4, False, QBOX_OPS, tables),
                                      library_ms=None)

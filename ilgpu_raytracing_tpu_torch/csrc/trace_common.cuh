@@ -53,14 +53,16 @@ constexpr int EMPTY = -1;
 constexpr int THREADS = 128;
 constexpr int MAX_DEPTH = 36;  // node-group stack entries a thread may use
 
-// The block's dynamic shared memory as int, for a walk's node-group stack.
-// The host build (ops/cuda/host_check.py) runs one thread at a time and
-// takes a static array of the most any launch asks for.
+// The block's dynamic shared memory as int, for a walk's stack of at most
+// `entries` entries a thread. The host build (ops/cuda/host_check.py) runs
+// one thread at a time and takes a static array of the most any launch
+// asks for.
 #ifdef __CUDACC__
-#define TRACE_SHARED_STACK(name) extern __shared__ int name[]
+#define TRACE_SHARED_STACK_OF(name, entries) extern __shared__ int name[]
 #else
-#define TRACE_SHARED_STACK(name) static int name[MAX_DEPTH * THREADS]
+#define TRACE_SHARED_STACK_OF(name, entries) static int name[(entries) * THREADS]
 #endif
+#define TRACE_SHARED_STACK(name) TRACE_SHARED_STACK_OF(name, MAX_DEPTH)
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;

@@ -70,7 +70,7 @@ def ptxas_info(name: str) -> list[str]:
                              os.path.join(CSRC, name + ".cu")],
         capture_output=True, text=True, check=True)
     return [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-            if "ptxas info" in ln and "Compile time" not in ln]
+            if ("ptxas info" in ln or "stack frame" in ln) and "Compile time" not in ln]
 
 
 def check(lib, prefix: str, err: int) -> None:

@@ -8,11 +8,14 @@ records (Nn, 4) = (left, first_row, count, skip), and the packed leaf rows
 compacted from 128 lanes to (Lt, 8, 12) triangles and (Ls, 8, 16) spheres,
 plus the instance tables of `wide._instance_tables` (here with the binary
 root). `binary_from_numpy` loads the JAX `PallasScene`'s arrays, so both
-packages can trace the same tables.
+packages can trace the same tables. From them it derives what the kernel
+reads (`pair_records`): one 64-byte child-pair record per inner node, one
+32-byte record of each instance root's box and child word, and the depth
+that bounds the kernel's stack.
 
 Device side: `trace_closest_binary` (closest hit: t, prim, inst, bu, bv) and
 `shadow_occlusion_binary` (any-hit) launch K6 on CUDA tensors and run its
-plain version on CPU tensors: the per-lane skip-index walk over the same
+plain version on CPU tensors: the per-lane skip-index walk over the flat
 tables, in the kernel's arithmetic. The slab, leaf-slot and transform
 helpers below are shared with the plain versions of K7/K8
 (ops/cuda/treelet.py).
@@ -50,9 +53,63 @@ class BinaryScene:
     inst_i: torch.Tensor  # (n_inst, 4) i32: kind, binary root, inst_id, identity
     inst_f: torch.Tensor  # (n_inst, 18) f32: w2o 12, world bounds 6
     kind_of_inst: torch.Tensor  # (max inst_id + 1,) i32 KIND_* per instance
+    pairs: torch.Tensor  # (Ni, 16) i32 child-pair records (`pair_records`)
+    roots: torch.Tensor  # (n_inst, 8) i32 each instance root's box and child word
+    depth: int  # most inner nodes on a root-to-leaf path: the stack bound
     meta: tuple = ()
     leaf_width: int = LEAF_WIDTH
     needs_bary: bool = True
+
+
+def tree_depth(node_i: np.ndarray, roots) -> tuple[np.ndarray, int]:
+    """(the nodes reachable from `roots`, as a mask; the most inner nodes on
+    a root-to-leaf path) of the binary tables node_i (Nn, 4) (left, first,
+    count, skip), whose inner node n has children `left` and n + 1."""
+    left, inner = node_i[:, 0].astype(np.int64), node_i[:, 2] == 0
+    reach = np.zeros((node_i.shape[0],), bool)
+    level, depth = np.unique(np.asarray(roots, np.int64)), 0
+    while level.size:
+        reach[level] = True
+        level = level[inner[level]]
+        depth += int(level.size > 0)
+        level = np.unique(np.concatenate([left[level], level + 1]))
+    return reach, depth
+
+
+def pair_records(boxes: np.ndarray, node_i: np.ndarray, roots) -> tuple:
+    """K6's child-pair records over the flat tables: boxes (Nn, 6) f32,
+    node_i (Nn, 4) (left, first_row, count, skip), the instances' roots.
+
+    The children of inner node n are `left` first and n + 1 second (the
+    BVH builders make the right subtree first, so n + 1 is also `left`'s
+    skip). Each inner node reachable from a root gets one record, in node
+    order: per child c, ints [8c, 8c + 8) hold its box (lo xyz, hi xyz, as
+    float32 bits), its child word and a zero. A child word is the child's
+    record index when it is inner, else ~(first_row << 3 | count - 1).
+    Returns (records (Ni, 16) i32, one such 8-int record per root (n_roots,
+    8) i32, depth: the most inner nodes on a root-to-leaf path)."""
+    nn = node_i.shape[0]
+    first, count = node_i[:, 1].astype(np.int64), node_i[:, 2].astype(np.int64)
+    inner = count == 0
+    reach, depth = tree_depth(node_i, roots)
+    ids = np.flatnonzero(reach & inner)
+    rank = np.full((nn,), -1, np.int64)
+    rank[ids] = np.arange(ids.size)
+    leaves = reach & ~inner
+    if (first[leaves] >= 1 << 28).any() or (count[leaves] > LEAF_WIDTH).any():
+        raise ValueError("binary trace: a leaf overflows its 28-bit row / 3-bit count word")
+    bits = np.ascontiguousarray(boxes, np.float32).view(np.int32)
+
+    def child(c):
+        out = np.zeros((c.size, 8), np.int32)
+        out[:, :6] = bits[c]
+        out[:, 6] = np.where(inner[c], rank[c], ~((first[c] << 3) | (count[c] - 1)))
+        return out
+
+    rec = np.zeros((max(ids.size, 1), 16), np.int32)
+    rec[: ids.size, :8] = child(node_i[ids, 0].astype(np.int64))
+    rec[: ids.size, 8:] = child(ids + 1)
+    return rec, child(np.asarray(roots, np.int64)), depth
 
 
 def binary_from_numpy(tables: dict, scene: SceneData) -> BinaryScene:
@@ -78,18 +135,24 @@ def binary_from_numpy(tables: dict, scene: SceneData) -> BinaryScene:
         return torch.as_tensor(np.array(x).reshape(shape), dtype=dtype,
                                device=dev).contiguous()
 
+    boxes = np.asarray(tables["nodes_rows"], np.float32)[:, 0:6]
+    node_i = np.asarray(tables["node_ifields"]).reshape(-1, 4)
+    pairs, roots, depth = pair_records(boxes, node_i, [m[1] for m in meta])
     return BinaryScene(
-        nodes=t(np.asarray(tables["nodes_rows"])[:, 0:6], torch.float32, (-1, 6)),
-        node_i=t(tables["node_ifields"], torch.int32, (-1, 4)),
+        nodes=t(boxes, torch.float32, (-1, 6)),
+        node_i=t(node_i, torch.int32, (-1, 4)),
         tri=t(tri_rows[:, : LEAF_WIDTH * TRI_SLOT], torch.float32,
               (-1, LEAF_WIDTH, TRI_SLOT)),
         sph=t(tables["sph_rows"], torch.float32, (-1, LEAF_WIDTH, SPH_SLOT)),
         inst_i=inst_i,
         inst_f=inst_f,
         kind_of_inst=torch.as_tensor(kinds, device=dev),
+        pairs=t(pairs, torch.int32, (-1, 16)),
+        roots=t(roots, torch.int32, (-1, 8)),
         meta=meta,
         leaf_width=int(tables["leaf_width"]),
         needs_bary=bool(tables["needs_bary"]),
+        depth=depth,
     )
 
 
@@ -193,10 +256,13 @@ def first_min(t, ok):
 # ---------------------------------------------------------------- K6 plain
 
 
-def _walk_plain(bs: BinaryScene, o, d, t_max, any_hit: bool):
+def _walk_plain(bs: BinaryScene, o, d, t_max, any_hit: bool, work=None):
     """Plain K6: the skip-index walk of every lane over the BinaryScene
     tables, instance by instance in meta order, with the kernel's
-    predicates; lanes that leave the tree drop out of the working set."""
+    predicates; lanes that leave the tree drop out of the working set.
+    `work` ([boxes, primitives]) gains what the walk tests: each box it
+    reaches, each slot of a hit leaf up to the first accepted one
+    (any-hit) or all of them (closest), as K6's counting variant counts."""
     n = o.shape[0]
     dev = o.device
     t_best = torch.clamp(t_max, max=T_INF)
@@ -209,7 +275,10 @@ def _walk_plain(bs: BinaryScene, o, d, t_max, any_hit: bool):
     ident = bs.inst_i[:, 3].tolist()
     for k, (kind, root, _w2o, _wb, inst_id) in enumerate(bs.meta):
         bound = t_max if any_hit else t_best
-        enter = (t_max > 0.0) & ~occ & slab(bs.inst_f[k, 12:18], o, inv_w, bound)
+        live = (t_max > 0.0) & ~occ
+        enter = live & slab(bs.inst_f[k, 12:18], o, inv_w, bound)
+        if work is not None:
+            work[0] += int(live.sum())
         lanes = torch.nonzero(enter).squeeze(1)
         if lanes.numel() == 0:
             continue
@@ -227,6 +296,8 @@ def _walk_plain(bs: BinaryScene, o, d, t_max, any_hit: bool):
         cur = torch.full_like(idx, root)
         slot = torch.arange(LEAF_WIDTH, device=dev)
         while idx.numel() > 0:
+            if work is not None:
+                work[0] += idx.numel()
             f = bs.node_i[cur]
             hit = slab(bs.nodes[cur], ro[idx], inv[idx], tl[idx] if any_hit else tb[idx])
             count = f[:, 2]
@@ -241,8 +312,14 @@ def _walk_plain(bs: BinaryScene, o, d, t_max, any_hit: bool):
                     t, ok = sph_slots(rows, ro[s], rd[s])
                 ok = ok & (slot[None, :] < n_slot[:, None])
                 if any_hit:
-                    oc[s] |= (ok & (t < tl[s, None])).any(dim=1)
+                    acc = ok & (t < tl[s, None])
+                    oc[s] |= acc.any(dim=1)
+                    if work is not None:  # up to the first accepted slot
+                        first = torch.argmax(acc.to(torch.int32), dim=1) + 1
+                        work[1] += int(torch.where(acc.any(dim=1), first, n_slot).sum())
                 else:
+                    if work is not None:
+                        work[1] += int(n_slot.sum())
                     mn, j = first_min(t, ok)
                     upd = mn < tb[s]
                     w = s[upd]
@@ -288,26 +365,35 @@ def library():
     if "lib" not in _state:
         lib, seconds = cu.load_kernel_library("binary_trace")
         common = [cu.VP, cu.VP, cu.VP, cu.CI, cu.VP, cu.VP, cu.VP, cu.VP, cu.VP,
-                  cu.VP, cu.CI, cu.CI]
+                  cu.VP, cu.CI, cu.CI, cu.CI]
         lib.binary_trace_closest.restype = cu.CI
         lib.binary_trace_closest.argtypes = common + [cu.VP] * 7
         lib.binary_trace_shadow.restype = cu.CI
         lib.binary_trace_shadow.argtypes = common + [cu.VP] * 3
+        lib.binary_max_depth.restype = cu.CI
         _state["lib"] = lib
         return lib, seconds
     return _state["lib"], 0.0
 
 
 def _launch(bs: BinaryScene, o, d, t_max, any_hit: bool, work=None):
+    """Launch K6 on the rays (the counting variant with `work`, 2 zeroed
+    int64 on the rays' device). Tables deeper than the kernel's stack are
+    refused here; a walk past `bs.depth` fails a device-side assert, which
+    the next synchronizing call raises, so nothing is read back."""
     lib, _ = library()
-    if bs.tri.data_ptr() % 16 or bs.sph.data_ptr() % 16:
-        raise ValueError("binary trace: leaf rows must be 16-byte aligned")
+    cap = lib.binary_max_depth()
+    if bs.depth > cap:
+        raise ValueError(f"binary trace: BVH of depth {bs.depth}; the node stack "
+                         f"holds {cap} levels")
+    if any(x.data_ptr() % 16 for x in (bs.pairs, bs.roots, bs.tri, bs.sph)):
+        raise ValueError("binary trace: records and leaf rows must be 16-byte aligned")
     n = o.shape[0]
     dev = o.device
-    args = [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, bs.nodes.data_ptr(),
-            bs.node_i.data_ptr(), bs.tri.data_ptr(), bs.sph.data_ptr(),
+    args = [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, bs.pairs.data_ptr(),
+            bs.roots.data_ptr(), bs.tri.data_ptr(), bs.sph.data_ptr(),
             bs.inst_i.data_ptr(), bs.inst_f.data_ptr(), bs.inst_i.shape[0],
-            bs.leaf_width]
+            bs.leaf_width, bs.depth]
     tail = [None if work is None else work.data_ptr(), cu.stream_ptr(o)]
     if work is None:
         LAUNCHES["binary_shadow" if any_hit else "binary_closest"] += 1
@@ -327,8 +413,13 @@ def _launch(bs: BinaryScene, o, d, t_max, any_hit: bool, work=None):
 
 
 def count_work(bs: BinaryScene, o, d, t_max, any_hit: bool) -> tuple[int, int]:
-    """(boxes, primitives) that K6 tests on these CUDA rays, from the
-    kernel's counting variant; not a launch of the frame."""
+    """(boxes, primitives) that K6 tests on these rays: on CUDA rays from
+    the kernel's counting variant (not a launch of the frame), on CPU rays
+    from the plain walk. Both count the skip-index walk's work."""
+    if o.device.type == "cpu":
+        work = [0, 0]
+        _walk_plain(bs, o, d, t_max, any_hit, work)
+        return work[0], work[1]
     work = torch.zeros((2,), dtype=torch.int64, device=o.device)
     _launch(bs, o, d, t_max, any_hit, work)
     return int(work[0]), int(work[1])

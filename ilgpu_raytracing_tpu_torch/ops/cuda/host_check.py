@@ -54,6 +54,11 @@ struct Dim { unsigned x, y, z; };
 static Dim blockIdx, threadIdx, blockDim;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
+constexpr cudaError_t cudaSuccess = 0;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class T> inline cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
 inline float4 __ldg(const float4* p) { return *p; }
@@ -189,7 +194,8 @@ def _same(a, b) -> bool:
 
 
 def check_binary(label, bs, o, d) -> bool:
-    """K6 (host build) vs its plain version: every output equal."""
+    """K6 (host build) vs its plain version: every output equal, and the
+    counting variant's boxes and primitives equal the skip walk's."""
     from ilgpu_raytracing_tpu_torch.ops.cuda import binary
     from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
 
@@ -201,12 +207,20 @@ def check_binary(label, bs, o, d) -> bool:
         tt = torch.full((n,), t_max)
         ok = ok and bool(torch.equal(binary._launch(bs, o, d, tt, any_hit=True)[0],
                                      binary.shadow_plain(bs, o, d, tt)))
-    work = torch.zeros((2,), dtype=torch.int64)
-    binary._launch(bs, o, d, tm, any_hit=False, work=work)
+    counts, same_work = [], True  # the counting variant against the skip walk's
+    for t_max, any_hit in ((T_INF, False), (1e29, True)):
+        tt = torch.full((n,), t_max)
+        work, plain = torch.zeros((2,), dtype=torch.int64), [0, 0]
+        binary._launch(bs, o, d, tt, any_hit=any_hit, work=work)
+        binary._walk_plain(bs, o, d, tt, any_hit, plain)
+        counts.append(work.tolist())
+        same_work = same_work and work.tolist() == plain
     print(f"{label} K6: {n} rays, outputs and occlusion (t_max 5, 1e29) "
-          f"{'equal' if ok else 'DIFFER'}; per ray {int(work[0]) / n:.1f} boxes, "
-          f"{int(work[1]) / n:.1f} primitives -> {'ok' if ok else 'FAIL'}", flush=True)
-    return ok
+          f"{'equal' if ok else 'DIFFER'}; counts {'equal' if same_work else 'DIFFER'} "
+          f"(per ray closest {counts[0][0] / n:.1f} boxes, {counts[0][1] / n:.1f} "
+          f"primitives, any-hit {counts[1][0] / n:.1f} boxes, {counts[1][1] / n:.1f} "
+          f"primitives) -> {'ok' if ok and same_work else 'FAIL'}", flush=True)
+    return ok and same_work
 
 
 def check_round(label, mod, ks, o, d, tile_rows: int, seed: int) -> bool:

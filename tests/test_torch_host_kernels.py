@@ -17,8 +17,14 @@ root): the order on which K8 = K4 and K7 = K1 on the card depend. The
 wrappers of K1, K2, K4, K5, K7 and K8 refuse, before any launch, tables
 deeper than the node-group stacks hold, and a K4 or K1 walk past its stack
 bound fails the kernel's assert (in a child process). K1's packed node
-record equals the flat wide tables field by field. This checks the
-kernels' logic; what nvcc accepts, and speed, show only on the card."""
+record equals the flat wide tables field by field. K6's child-pair records
+equal the flat binary tables; K6 equals its plain version bit for bit on
+rays that tie between triangles (over the SAH build and over trees of
+random shape), which pins its preorder, and its counting variant counts
+the skip walk's boxes and primitives; its wrapper refuses tables deeper
+than its stack, and a walk past the bound fails its assert (in a child
+process). This checks the kernels' logic; what nvcc accepts, and speed,
+show only on the card."""
 
 import copy
 import os
@@ -355,3 +361,223 @@ def test_host_built_k4_fails_its_assert_past_the_stack_bound(host, kernel):
     assert proc.returncode != 0, proc.stdout + proc.stderr
     assert "the walk returned" not in proc.stdout
     assert "node-group stack overflow" in proc.stderr, proc.stderr[-2000:]
+
+
+BINARY_CASES = {
+    "cornell_leaf8": CASES["cornell_wide"][1],
+    "default_spheres": ROUND_CASES["default_binary_treelet"][1],
+    "default_single": lambda: build_default_scene(single_instance=True, device="cpu")[1],
+}
+
+
+@pytest.mark.parametrize("case", list(BINARY_CASES))
+def test_binary_pair_records_equal_the_flat_tables(case):
+    """K6's child-pair records (binary.pair_records) against the flat
+    (Nn, 6) / (Nn, 4) tables: one record per inner node reachable from an
+    instance root, in node order; child 0 is `left`, child 1 is n + 1, which
+    is also `left`'s skip; each child's box bit for bit and its word (the
+    child's record index, or the leaf's row and count); each instance's
+    root record (its box and word) in meta order; the depth of the deepest
+    root-to-leaf path in inner nodes."""
+    bs = binary.prepare_binary(BINARY_CASES[case]())
+    boxes, node_i = bs.nodes.numpy(), bs.node_i.numpy()
+    roots = [m[1] for m in bs.meta]
+    inner, depth = [], 0
+    todo = [(r, 0) for r in set(roots)]
+    while todo:  # the tree under each root, with each node's inner depth
+        n, above = todo.pop()
+        if node_i[n, 2] > 0:
+            depth = max(depth, above)
+            continue
+        inner.append(n)
+        todo += [(node_i[n, 0], above + 1), (n + 1, above + 1)]
+    inner = sorted(inner)
+    rank = {n: k for k, n in enumerate(inner)}
+
+    def word(c):
+        if node_i[c, 2] == 0:
+            return rank[c]
+        return ~(int(node_i[c, 1]) << 3 | int(node_i[c, 2]) - 1)
+
+    def assert_child(r, child):  # 8 ints: box bits, word, 0
+        np.testing.assert_array_equal(r[:6], boxes[child].view(np.int32))
+        assert r[6] == word(child) and r[7] == 0
+
+    rec = bs.pairs.numpy()
+    for x in (bs.pairs, bs.roots):
+        assert x.dtype == torch.int32 and x.data_ptr() % 16 == 0
+    assert rec.shape == (max(1, len(inner)), 16) and bs.depth == depth
+    for n in inner:
+        left = node_i[n, 0]
+        assert left > n + 1 and node_i[left, 3] == n + 1  # n + 1 is left's skip
+        for c, child in enumerate((left, n + 1)):
+            assert_child(rec[rank[n], 8 * c: 8 * c + 8], child)
+    assert bs.roots.shape == (len(roots), 8)
+    for r, root in zip(bs.roots.numpy(), roots):
+        assert_child(r, root)
+    # six one-leaf instances; one six-sphere BLAS of leaf 4; the Cornell box
+    assert len(inner) >= {"default_spheres": 0, "default_single": 1}.get(case, 50)
+
+
+def _tie_scene(copies: int, leaf: int):
+    """A 7 x 5 grid of 0.5-unit quads on y = 0 (x in [-2, 1.5], z in [-1.5,
+    1]) whose triangles appear `copies` times (same vertices, new prim ids),
+    SAH BVH leaves of `leaf` triangles, and rays that tie: straight down onto
+    the grid's vertices and edge midpoints (dyadic, so t = 1 and the
+    barycentrics are exact and each triangle touching the point accepts
+    it), plus 768 camera rays, on which every hit ties between the copies.
+    Returns the scene, the triangles in one copy, and the rays."""
+    from ilgpu_raytracing_tpu_torch.models.materials import Material
+    from ilgpu_raytracing_tpu_torch.models.scene import SceneBuilder
+
+    nx, nz = 7, 5
+    gx, gz = np.meshgrid(np.arange(nx + 1) * 0.5 - 2.0, np.arange(nz + 1) * 0.5 - 1.5,
+                         indexing="ij")
+    v = np.stack([gx.reshape(-1), np.zeros(gx.size), gz.reshape(-1)], 1)
+    idx = np.arange(gx.size).reshape(nx + 1, nz + 1)
+    a, b, c, d = (idx[:-1, :-1], idx[1:, :-1], idx[:-1, 1:], idx[1:, 1:])
+    t = np.concatenate([np.stack([a, b, d], -1).reshape(-1, 3),
+                        np.stack([a, d, c], -1).reshape(-1, 3)])
+    sb = SceneBuilder(blas_leaf_size=leaf, bvh_method="sah")
+    sb.add_material(Material(kd=(0.7, 0.6, 0.5)))
+    sb.add_mesh_instance(v.astype(np.float32), np.concatenate([t] * copies))
+    # the far edges x = 1.5, z = 1 lie on the slab's boundary, which a ray
+    # along the axis misses (hi = 0 < T_EPS): left out
+    x, z = (a.reshape(-1) for a in np.meshgrid(np.arange(2 * nx) * 0.25 - 2.0,
+                                               np.arange(2 * nz) * 0.25 - 1.5,
+                                               indexing="ij"))
+    down = torch.as_tensor(np.stack([x, np.ones_like(x), z], 1), dtype=torch.float32)
+    cam = Camera.look_at((0.3, 3.0, 2.5), (0, 0, 0), (0, 1, 0), 60.0, 1.5)
+    o, d = host_check.jittered_rays(cam, 32, 24, 1)
+    o = torch.cat([down, o]).contiguous()
+    d = torch.cat([torch.tensor([[0.0, -1.0, 0.0]]).expand(down.shape[0], 3), d])
+    return sb.commit(device="cpu"), t.shape[0], o, d.contiguous()
+
+
+def _random_tree(scene, seed: int):
+    """K6 tables of `scene`'s triangles (one identity instance) over a binary
+    tree of random shape in the builders' layout (node, right subtree, left
+    subtree; child 1 = n + 1 = left's skip): triangles in a random order,
+    random split points, leaves of 1-4 triangles. Unlike the builders'
+    median split, it makes inner-left / leaf-right nodes, where a walk
+    that tested leaf children first would break a tie the other way."""
+    rng = np.random.default_rng(seed)
+    v0, e1, e2 = (getattr(scene, f).numpy() for f in ("tri_v0", "tri_e1", "tri_e2"))
+    corners = np.stack([v0, v0 + e1, v0 + e2], 1)
+    boxes, ifields, rows = [], [], []
+
+    def build(ids, skip):
+        n = len(ifields)
+        boxes.append(np.concatenate([corners[ids].min((0, 1)), corners[ids].max((0, 1))]))
+        ifields.append([-1, -1, 0, skip])
+        if len(ids) == 1 or (len(ids) <= 4 and rng.random() < 0.5):
+            row = np.zeros((128,), np.float32)
+            for j, p in enumerate(ids):
+                row[12 * j: 12 * j + 10] = np.concatenate([v0[p], e1[p], e2[p], [p]])
+            ifields[n][1:3] = [len(rows), len(ids)]
+            rows.append(row)
+            return n
+        mid = int(rng.integers(1, len(ids)))
+        right = build(ids[mid:], skip)
+        ifields[n][0] = build(ids[:mid], right)
+        return n
+
+    build(rng.permutation(v0.shape[0]), -1)
+    nodes = np.zeros((len(boxes), 128), np.float32)
+    nodes[:, :6] = np.stack(boxes)
+    lo, hi = corners.min((0, 1)), corners.max((0, 1))
+    meta = ((BLAS_TRI_MESH, 0, (1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, 1.0, 0),
+             tuple(lo.tolist() + hi.tolist()), 0),)
+    return binary.binary_from_numpy(dict(
+        nodes_rows=nodes, node_ifields=np.asarray(ifields, np.int32).reshape(-1),
+        tri_rows=np.stack(rows), sph_rows=np.zeros((1, 128), np.float32), meta=meta,
+        leaf_width=max(f[2] for f in ifields), needs_bary=True), scene)
+
+
+@pytest.mark.parametrize("copies,leaf,tree", [(1, 1, "sah"), (2, 1, "sah"), (3, 2, "sah"),
+                                              (2, 1, "random"), (3, 1, "random")])
+def test_host_built_k6_keeps_the_preorder_on_ties(host, copies, leaf, tree):
+    """K6 on rays that tie in t between triangles (edge- and
+    vertex-sharing triangles, duplicated triangles), over the SAH build and
+    over trees of random shape: t, prim, inst, bu, bv equal the plain
+    skip-index walk bit for bit. A tie goes to the primitive tested first,
+    so this pins the walk's order: the left subtree before the right, and
+    a leaf child no earlier than its place in that order. Later copies win
+    somewhere, so no fixed rule of ids stands in for the order."""
+    scene, n_tri, o, d = _tie_scene(copies, leaf)
+    bs = binary.prepare_binary(scene) if tree == "sah" else _random_tree(scene, copies)
+    tm = torch.full((o.shape[0],), T_INF)
+    got = binary._launch(bs, o, d, tm, any_hit=False)
+    want = binary.trace_plain(bs, o, d, tm)
+    for name, a, b in zip(("t", "prim", "inst", "bu", "bv"), got, want):
+        assert torch.equal(a, b), name
+    prim = want[1][want[1] >= 0]
+    assert prim.numel() > 250 and bool((want[0][:140] == 1.0).all())
+    if copies > 1:
+        assert bool((prim >= n_tri).any())
+
+
+@pytest.mark.parametrize("tree", ["sah", "random"])
+def test_host_built_k6_counts_the_skip_walks_work(host, tree):
+    """K6's counting variant (closest at T_INF, any-hit at t_max 5 and
+    1e29, some lanes inactive) counts the boxes and primitives that the
+    plain skip-index walk tests, on trees of two shapes: its bound
+    (chip_smoke.trace_bound) counts the function's work, not the extra
+    tests of the design, such as an any-hit visit's test of a second
+    child that the walk never reaches once it hits in the first."""
+    scene, _, o, d = _tie_scene(2, 2)
+    bs = binary.prepare_binary(scene) if tree == "sah" else _random_tree(scene, 5)
+    live = torch.as_tensor(np.random.default_rng(3).random(o.shape[0]) < 0.9)
+    for t_max, any_hit in ((T_INF, False), (5.0, True), (1e29, True)):
+        tm = torch.where(live, t_max, 0.0).to(torch.float32)
+        work = torch.zeros((2,), dtype=torch.int64)
+        binary._launch(bs, o, d, tm, any_hit=any_hit, work=work)
+        assert work.tolist() == list(binary.count_work(bs, o, d, tm, any_hit)), t_max
+
+
+def test_k6_wrapper_refuses_tables_deeper_than_its_stack(host, small_cornell_wide):
+    """A depth above the kernel's stack (binary_max_depth) is refused before
+    any launch."""
+    _, o, d = small_cornell_wide
+    bs = binary.prepare_binary(CASES["cornell_wide"][1]())
+    deep = copy.copy(bs)
+    deep.depth = binary.library()[0].binary_max_depth() + 1
+    before = dict(binary.LAUNCHES)
+    for any_hit in (False, True):
+        with pytest.raises(ValueError, match="node stack holds"):
+            binary._launch(deep, o, d, torch.full((o.shape[0],), T_INF), any_hit=any_hit)
+    assert binary.LAUNCHES == before
+
+
+K6_OVERFLOW_CHILD = """
+import sys, torch
+from ilgpu_raytracing_tpu_torch.models import cornell
+from ilgpu_raytracing_tpu_torch.ops import cuda as cu
+from ilgpu_raytracing_tpu_torch.ops.cuda import binary, host_check
+import ctypes
+cu.load_kernel_library = lambda name: (ctypes.CDLL(sys.argv[1]), 0.0)
+cu.stream_ptr = lambda t: None
+bs = binary.prepare_binary(cornell.build_cornell_scene(
+    tess=4, sphere_tess=(8, 12), blas_leaf_size=8, bvh_method="sah", device="cpu")[1])
+o, d = host_check.jittered_rays(cornell.cornell_camera(32, 16), 32, 16, 1)
+assert bs.depth > 1
+bs.depth = 1  # one entry: a ray with two pending second children fails
+binary._launch(bs, o, d, torch.full((o.shape[0],), 1e30), any_hit=False)
+print("the walk returned")
+"""
+
+
+def test_host_built_k6_fails_its_assert_past_the_stack_bound(host):
+    """K6 (leaf-8 Cornell box) called with a stack cap of 1, below the
+    depth the host proved: the walk's assert ends the process (on the card,
+    the device-side assert fails the next synchronizing call; chip_smoke.py
+    checks that in a child process)."""
+    so = os.path.join(BUILD_DIR, "host", "libbinary_trace.so")  # the fixture's build
+    proc = subprocess.run(
+        [sys.executable, "-c", K6_OVERFLOW_CHILD, so], capture_output=True,
+        text=True, timeout=300,  # the abort writes no core file
+        preexec_fn=lambda: resource.setrlimit(resource.RLIMIT_CORE, (0, 0)),
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert proc.returncode != 0, proc.stdout + proc.stderr
+    assert "the walk returned" not in proc.stdout
+    assert "binary walk: node stack overflow" in proc.stderr, proc.stderr[-2000:]

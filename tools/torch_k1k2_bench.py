@@ -13,16 +13,22 @@ Prints, for the package found in the current directory:
   the bound of chip_smoke.py's `trace_bound` from those counts, and a digest
   of (t, pp) or of the occlusion, so that two checkouts can be held equal
   bit for bit;
-- K6 (the binary skip-index walk) closest and any-hit on the same bounce
-  lanes, timed in turns with K1 and K2: the route question of the wide
-  against the binary tables;
+- K6 (the binary BVH walk) closest and any-hit on the same bounce lanes,
+  timed in turns with K1 and K2 (the route question of the wide against
+  the binary tables), and K6 closest on the primary rays: ms, the boxes
+  and primitives its counting variant tallies, the bound from them, and a
+  digest of (t, prim, inst, bu, bv) or of the occlusion;
 - the first K7 round of `trace_closest_treelet_packed` on the bounce lanes
   (packets of 4096): ms (twice), boxes, primitives, bound, digest; and
   whether the rounds call equals K1 in t and pp on every lane.
 The bound's bytes are those of the flat wide tables (child boxes, child
 words, order words: the same 256 bytes a node as the packed record), the
 leaf rows and the instance tables in every checkout, so that two checkouts'
-bounds differ only by the work their walks count.
+bounds differ only by the work their walks count; K6's are those of the
+flat binary tables (node boxes, node records, leaf rows, instance tables),
+and beside them the bound over the tables the checkout's kernel reads (the
+child-pair and root records in place of the flat node tables where the
+checkout has them).
 
 To pair two checkouts, run this script from the root of each, in turns, on
 one card in one run (parent, change, change, parent):
@@ -83,7 +89,7 @@ def bench_build(cs, lanes: dict, reps: int) -> dict:
     from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
 
     out: dict = {}
-    for name in ("wide_trace", "treelet_trace"):
+    for name in ("wide_trace", "treelet_trace", "binary_trace"):
         out[f"ptxas_{name}"] = cu.ptxas_info(name)
         for line in out[f"ptxas_{name}"]:
             print(f"ptxas {name}.cu: {line}", flush=True)
@@ -127,9 +133,35 @@ def bench_build(cs, lanes: dict, reps: int) -> dict:
     record("k2_bounce", nb, k2, wide.count_work(ws, bo, bd, tms, any_hit=True),
            True, (occ,))
     out["k2_bounce"]["occluded"] = int(occ.sum())
-    out["k6_bounce"] = dict(closest_ms=k6c, anyhit_ms=k6s)
-    print(f"k6 on the same {nb} bounce lanes: closest {k6c[0]:.4f}, {k6c[1]:.4f} ms; "
-          f"any-hit {k6s[0]:.4f}, {k6s[1]:.4f} ms", flush=True)
+
+    flat = (bs.nodes, bs.node_i, bs.tri, bs.sph, bs.inst_i, bs.inst_f)
+    # the tables this checkout's kernel reads: the flat ones, or the records
+    reads = flat
+    if hasattr(bs, "pairs"):
+        reads = (bs.pairs, bs.roots, bs.tri, bs.sph, bs.inst_i, bs.inst_f)
+
+    def record_k6(label, lanes_n, ms, work, any_hit, outs):
+        out_bytes = 1 if any_hit else 20
+        bound = cs.trace_bound(lanes_n, work, any_hit, cs.BOX_OPS, flat, out_bytes)
+        own = cs.trace_bound(lanes_n, work, any_hit, cs.BOX_OPS, reads, out_bytes)
+        out[label] = dict(ms=ms, boxes=work[0], prims=work[1], digest=digest(*outs),
+                          lanes=lanes_n, bound_over_its_tables=own, **bound)
+        print(f"{label} {lanes_n} lanes: {', '.join(f'{v:.4f}' for v in ms)} ms; "
+              f"{work[0]} boxes, {work[1]} primitives, bound {bound} (over the "
+              f"tables its kernel reads {own}); digest {out[label]['digest']}",
+              flush=True)
+
+    record_k6("k6_closest_bounce", nb, k6c, binary.count_work(bs, bo, bd, tmb, False),
+              False, binary.trace_binary_raw(bs, bo, bd, tmb))
+    occ6 = binary.shadow_occlusion_binary(bs, bo, bd, tms)
+    record_k6("k6_anyhit_bounce", nb, k6s, binary.count_work(bs, bo, bd, tms, True),
+              True, (occ6,))
+    out["k6_anyhit_bounce"]["occluded"] = int(occ6.sum())
+    tmp = torch.full((n,), T_INF, device=dev)  # t_max of the primary rays
+    ms = [cs.cuda_ms(lambda: binary.trace_binary_raw(bs, o, d, tmp), reps)
+          for _ in range(2)]
+    record_k6("k6_primary", n, ms, binary.count_work(bs, o, d, tmp, False), False,
+              binary.trace_binary_raw(bs, o, d, tmp))
 
     (t, pp, rounds), (args, _) = cs._first_round(
         (ops_treelet.tl, "run_treelet_trace"),
