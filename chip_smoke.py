@@ -16,7 +16,12 @@ PyTorch version on the card:
   streaming kernels K4/K5 and K3 with the destination-treelet sort key,
   through `Renderer`;
 - the stream treelet rounds on the terrain's 1,802,240 treelet-sorted
-  bounce lanes: K8 (and K3).
+  bounce lanes: K8 (and K3);
+- the Sponza-like courtyard of `models/sponza_like.py` (94 triangles, 5
+  materials, TGA diffuse textures and alpha-cutout banners, loaded through
+  the OBJ/MTL parser; median BVH, leaf 8) at 1920x1080, spp=2,
+  max_depth=3: every trace peels around K1 (ops/alpha.py), K3 sorts the
+  bounce batches, and `path_trace` runs in 2 chunks, through `Renderer`.
 
 Phases:
   1. device: the card's name and power limit;
@@ -82,7 +87,20 @@ Phases:
      integrator with a StreamScene, kernels on the card vs plain on the
      CPU, held to the golden-image bar;
  15. the terrain main path: one warm-up and 3 timed 1080p frames, each
-     copied to the host, with every kernel's launch count checked.
+     copied to the host, with every kernel's launch count checked;
+ 16. K1/K2 vs the plain walk on the courtyard's 1280x720 primary rays (the
+     opaque tables, has_alpha off, barycentrics on), at the bar of phase 4;
+     K1 timed there, with its boxes, primitives and bound;
+ 17. 64x64 courtyard frame pairs, kernels (the peel around K1, and around
+     K4 on a StreamScene of the courtyard) on the card vs plain versions on
+     the CPU, held to the golden-image bar;
+ 18. the courtyard main path: one warm-up and 3 timed 1080p frames, each
+     copied to the host: K1 and K3 launched, K2, K4-K8 not, `path_trace` in
+     2 chunks, the peel rounds of every trace counted (K1 launches equal
+     their sum); then the same tables with has_alpha off (the opaque
+     control of tools/alphabench.py) and the alpha frame in one chunk
+     (chunk_pixels=0) in turns with the alpha frames, the medians and
+     their ratios.
 
 Each kernel's bound is the larger of the bytes it must move (rays in and
 results out once, the scene tables read once) over 3.35 TB/s and the
@@ -97,11 +115,13 @@ python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -110,6 +130,8 @@ import torch
 FRAMES = 6
 K6_FRAMES = 3
 TERRAIN_FRAMES = 3
+COURTYARD_FRAMES = 3
+COURTYARD_PAIRS = 4  # alpha and opaque-control frames timed in turns
 T_REL_TOL = 1e-3
 SUBSET = 65_536  # rays of each terrain population held to the plain walk
 K3_LANES = 1_802_240  # 2 x 901,120: the frame's sorted bounce batches
@@ -508,30 +530,33 @@ def _read_counts() -> dict:
 
 
 def _want(**nonzero) -> dict:
-    """Launch counts of a path: every kernel 0 except those given."""
+    """Launch counts of a path: every kernel 0 except those given (None:
+    launched at least once a frame)."""
     return {**{k: 0 for k in _read_counts()}, **nonzero}
 
 
-def _drive(label, r, frames, want_per_frame):
+def _drive(label, r, frames, want_per_frame, around=contextlib.nullcontext):
     """One warm-up and `frames` timed frames of the Renderer, each copied to
     the host, with the launch counts set to 0 just before the timed frames
-    and read just after. Returns the launch counts of the timed frames."""
+    and read just after (`around()` is entered around the timed frames).
+    Returns the launch counts of the timed frames."""
     cfg = r.cfg
     r.render().cpu()  # warm-up
     torch.cuda.synchronize()
 
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
     frame_ms = []
     eff = 0.0
-    for _ in range(frames):
-        tf = time.monotonic()
-        packed = r.render().cpu()
-        torch.cuda.synchronize()
-        frame_ms.append((time.monotonic() - tf) * 1e3)
-        eff += float(r._last_aux["eff_rays"])
-    dt = time.monotonic() - t0
+    with around():
+        t0 = time.monotonic()
+        for _ in range(frames):
+            tf = time.monotonic()
+            packed = r.render().cpu()
+            torch.cuda.synchronize()
+            frame_ms.append((time.monotonic() - tf) * 1e3)
+            eff += float(r._last_aux["eff_rays"])
+        dt = time.monotonic() - t0
     launches = _read_counts()
 
     in_n = r.in_w * r.in_h
@@ -546,7 +571,9 @@ def _drive(label, r, frames, want_per_frame):
     log(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     per_frame = {k: v / frames for k, v in launches.items()}
     log(f"{label} launches per frame: {per_frame}")
-    check(per_frame == want_per_frame,
+    check(per_frame.keys() == want_per_frame.keys() and all(
+        per_frame[k] > 0 if want is None else per_frame[k] == want
+        for k, want in want_per_frame.items()),
           f"{label} launch counts {per_frame} != {want_per_frame}")
 
     img = packed.numpy()
@@ -1126,6 +1153,160 @@ def phase_terrain_main(dev, scene):
                   _want(stream_closest=depth, stream_shadow=depth + 2, sortpos=2 * depth))
 
 
+def _courtyard(device):
+    """The Sponza-like courtyard: its asset written into a temporary
+    directory under the build directory and loaded back through the
+    OBJ/MTL parser (median BVH, leaf 8)."""
+    from ilgpu_raytracing_tpu_torch.models.sponza_like import build_sponza_like_scene
+    from ilgpu_raytracing_tpu_torch.utils.build import BUILD_DIR
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d:
+        _, scene = build_sponza_like_scene(d, device=device)
+    check(scene.has_alpha and scene.n_tris == 94,
+          f"courtyard: has_alpha {scene.has_alpha}, {scene.n_tris} triangles")
+    log(f"courtyard on {device}: {scene.n_tris} tris, {scene.mat_kd.shape[0]} materials, "
+        f"{scene.tex_offset.shape[0]} textures ({scene.texels.shape[0]} texels), "
+        f"written, parsed and built in {time.monotonic() - t0:.3f} s")
+    return scene
+
+
+def phase_courtyard_k1_k2(dev, results):
+    """K1/K2 vs the plain walk on the courtyard's 1280x720 primary rays. The
+    kernels test no alpha mask: they are held to the walk of the opaque
+    tables (WideScene.scene has has_alpha off), with barycentrics on. K1 is
+    timed there with the bound from its boxes and primitives."""
+    from ilgpu_raytracing_tpu_torch.models.sponza_like import sponza_camera
+    from ilgpu_raytracing_tpu_torch.ops import rays
+    from ilgpu_raytracing_tpu_torch.ops.cuda import wide
+    from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
+
+    scene = _courtyard(dev)
+    ws = wide.prepare_scene(scene)
+    check(ws.needs_bary and not ws.scene.has_alpha,
+          f"courtyard WideScene: needs_bary {ws.needs_bary}, plain tables has_alpha "
+          f"{ws.scene.has_alpha}")
+    log(f"courtyard WideScene: {ws.wide_child.numel() // 8} wide nodes, wide depth "
+        f"{ws.wide_depth}, needs_bary {ws.needs_bary}")
+    o, d = rays.generate_primary_rays(sponza_camera(1280, 720), 1280, 720, dev)
+    o = o.contiguous()
+    k1_err, k2_err = _trace_bar(ws, o, d, "courtyard primary (opaque tables)")
+    for name, err in (("wide_closest", k1_err), ("wide_shadow", k2_err)):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    n = o.shape[0]
+    tm = torch.full((n,), T_INF, device=dev)
+    ms = cuda_ms(lambda: wide.trace_closest_wide_packed(ws, o, d), 10)
+    plain_ms = cuda_ms(lambda: wide.trace_closest_plain(ws, o, d, tm), 1)
+    work = wide.count_work(ws, o, d, tm, any_hit=False)
+    tables = (ws.nodes, ws.tri_rows, ws.sph_rows, ws.inst_i, ws.inst_f)
+    log(f"K1 courtyard primary {n} lanes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+        f"{work[0]} boxes, {work[1]} primitives, bound "
+        f"{trace_bound(n, work, False, BOX_OPS, tables)}")
+    return scene
+
+
+def phase_courtyard_parity(dev):
+    from ilgpu_raytracing_tpu_torch.models.sponza_like import sponza_camera
+    from ilgpu_raytracing_tpu_torch.ops.cuda import stream, wide
+
+    scene = _courtyard("cpu")
+    _parity(dev, "courtyard (WideScene: peel around K1)", scene, wide.prepare_scene,
+            sponza_camera)
+    _parity(dev, "courtyard (StreamScene: peel around K4)", scene, stream.prepare_stream,
+            sponza_camera)
+
+
+def phase_courtyard_main(dev, scene):
+    """The courtyard frame through Renderer: every trace peels around K1, K3
+    sorts the bounce batches, path_trace runs in 2 chunks of trace lanes.
+    Spies on the peel entries and on integrator._path_trace_block count the
+    rounds of every trace and the chunks of the timed frames. Then the same
+    tables with has_alpha off (the opaque control) and the alpha frame in
+    one chunk, in turns with it."""
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.models.sponza_like import sponza_camera
+    from ilgpu_raytracing_tpu_torch.ops import alpha, integrator
+    from ilgpu_raytracing_tpu_torch.ops.cuda import wide
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    def renderer(sc, **knobs):
+        r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3, **knobs), sc,
+                     sponza_camera(1920, 1080), device=dev)
+        r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+        return r
+
+    r = renderer(scene)
+    check(isinstance(r.wscene, wide.WideScene), "the courtyard did not get a WideScene")
+    rounds = {"closest": [], "shadow": []}
+    chunks = []
+
+    @contextlib.contextmanager
+    def spies():
+        real = (alpha.trace_closest_peel, alpha.shadow_occlusion_peel,
+                integrator._path_trace_block)
+
+        def spy(fn, key):
+            def run(*a, **kw):
+                out, i = fn(*a, with_iters=True, **kw)
+                rounds[key].append(i)
+                return out
+            return run
+
+        def block(*a):
+            chunks.append(a[3].shape[0])
+            return real[2](*a)
+
+        alpha.trace_closest_peel = spy(real[0], "closest")
+        alpha.shadow_occlusion_peel = spy(real[1], "shadow")
+        integrator._path_trace_block = block
+        try:
+            yield
+        finally:
+            (alpha.trace_closest_peel, alpha.shadow_occlusion_peel,
+             integrator._path_trace_block) = real
+
+    f = COURTYARD_FRAMES
+    counts = _drive("courtyard main path", r, f, _want(wide_closest=None, sortpos=12),
+                    spies)
+    n_rounds = sum(rounds["closest"]) + sum(rounds["shadow"])
+    n_calls = len(rounds["closest"]) + len(rounds["shadow"])
+    check(chunks == [r.in_w * r.in_h // 2] * (2 * f),
+          f"courtyard path_trace chunks of the timed frames: {chunks}")
+    check(counts["wide_closest"] == n_rounds,
+          f"courtyard: {counts['wide_closest']} K1 launches, {n_rounds} peel rounds")
+    for key, vals in rounds.items():
+        log(f"courtyard {key} peels: {len(vals) / f:g} a frame, rounds per trace: "
+            f"mean {np.mean(vals):.4f}, min {min(vals)}, max {max(vals)}, "
+            f"{vals[:len(vals) // f]} in the first timed frame")
+    log(f"courtyard: path_trace in {len(chunks) // f} chunks of {chunks[0]} pixels a "
+        f"frame; peel rounds per trace {n_rounds / n_calls:.4f}; K1 launches per frame "
+        f"{counts['wide_closest'] / f:g} (the peel rounds); host reads of pending.any() "
+        f"per frame {(n_rounds + n_calls) / f:g}")
+
+    # the opaque control, and the alpha frame unchunked (chunk_pixels=0): what
+    # the peel costs, and what the 2 chunks cost
+    arms = {"alpha": r, "opaque": renderer(dataclasses.replace(scene, has_alpha=False)),
+            "alpha 1 chunk": renderer(scene, chunk_pixels=0)}
+    for name in ("opaque", "alpha 1 chunk"):
+        arms[name].render().cpu()  # warm-up
+    torch.cuda.synchronize()
+    ms = {k: [] for k in arms}
+    for k in range(COURTYARD_PAIRS):
+        for name in (arms if k % 2 == 0 else reversed(arms)):
+            tf = time.monotonic()
+            arms[name].render().cpu()
+            torch.cuda.synchronize()
+            ms[name].append((time.monotonic() - tf) * 1e3)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"courtyard alpha vs opaque control in turns ({COURTYARD_PAIRS} frames each, ms): "
+        + "; ".join(f"{k} {[round(x, 3) for x in v]}" for k, v in ms.items())
+        + "; medians " + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f"; ratio alpha / opaque {med['alpha'] / med['opaque']:.4f}, alpha 1 chunk / "
+        f"opaque {med['alpha 1 chunk'] / med['opaque']:.4f}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1160,6 +1341,10 @@ def main() -> int:
     k6_counts = timed("K6 main path", phase_k6_main_path, dev, bench)
     k7_counts = timed("K7", phase_k7, dev, results, bench)
     del bench
+    court = timed("courtyard K1/K2", phase_courtyard_k1_k2, dev, results)
+    timed("courtyard parity", phase_courtyard_parity, dev)
+    court_counts = timed("courtyard main path", phase_courtyard_main, dev, court)
+    del court
     terrain, ss = timed("terrain prep", phase_terrain_prep, dev)
     lanes = timed("K4/K5", phase_k4_k5, dev, results, terrain, ss)
     k8_counts = timed("K8", phase_k8, dev, results, ss, lanes)
@@ -1173,14 +1358,19 @@ def main() -> int:
     meta = {
         "wide_closest": (csrc + "wide_trace.cu", pallas + "wide_kernel.py:952",
                          "hit masks equal to the plain walk, relative t mismatch above "
-                         "1e-3 on < 0.5% of rays (bench, 6-sphere, transformed scenes)"),
+                         "1e-3 on < 0.5% of rays (bench, 6-sphere, transformed scenes, "
+                         "the courtyard's opaque tables); the peel around it on the "
+                         "64x64 courtyard frame at the golden bar against the plain "
+                         "peel on the CPU"),
         "wide_shadow": (csrc + "wide_trace.cu", pallas + "wide_kernel.py:1073",
                         "occlusion equal to the plain walk on > 99.5% of rays at t_max "
-                        "5 and 1e29"),
+                        "5 and 1e29 (bench, 6-sphere, transformed scenes, the "
+                        "courtyard's opaque tables)"),
         "sortpos": (csrc + "sortpos.cu", pallas + "sortpos_kernel.py:135",
                     "positions equal to the plain counting sort on every lane at 129, "
                     "16, 258 bins and on the edge sets (one bin, descending, n = 1, "
-                    "1,000, 1,802,241, bins 1 and 384); a key out of range fails"),
+                    "1,000, 1,802,241, bins 1 and 384); a key out of range fails; "
+                    "12 launches a courtyard frame"),
         "stream_closest": (csrc + "stream_trace.cu", pallas + "stream_kernel.py:906",
                            f"hit masks equal, no |dt| > 1e-3, prim agreement > 99.5% "
                            f"on {subsets}"),
@@ -1203,10 +1393,11 @@ def main() -> int:
                           "pp equal to K4 on all 1,802,240 lanes"),
     }
     # launches: each kernel's count over the runs of the main paths (the
-    # timed frames of the three Renderer paths, one call of each treelet
+    # timed frames of the four Renderer paths, one call of each treelet
     # entry); K3 runs on all of them. Every bar was checked above, so a
     # kernel that reaches this line met it.
-    paths = (cornell_counts, k6_counts, k7_counts, terrain_counts, k8_counts)
+    paths = (cornell_counts, k6_counts, k7_counts, court_counts, terrain_counts,
+             k8_counts)
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=sum(c[name] for c in paths), bar=bar, result="met",

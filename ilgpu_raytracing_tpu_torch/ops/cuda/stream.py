@@ -98,7 +98,7 @@ class StreamScene:
     sortkey_bounds: torch.Tensor  # (T<=32, 6) f32 world treelet boxes
     inst_i: torch.Tensor  # (n_inst,4) i32: kind, wide root, inst_id, identity
     inst_f: torch.Tensor  # (n_inst,18) f32: w2o 12, world bounds 6
-    scene: SceneData  # the plain versions trace this
+    scene: SceneData  # the plain versions trace this, alpha off as in the kernels
     meta: tuple = ()
     rows_per_leaf: int = ROWS_PER_LEAF  # most rows of any leaf
     stack_cap: int = 256  # TPU frontier bound (table parity with the JAX prep)
@@ -410,7 +410,7 @@ def stream_from_numpy(tables: dict, scene: SceneData) -> StreamScene:
         sortkey_bounds=t("sortkey_bounds", torch.float32),
         inst_i=inst_i,
         inst_f=inst_f,
-        scene=scene,
+        scene=dataclasses.replace(scene, has_alpha=False),
         meta=meta,
         rows_per_leaf=int(tables["rows_per_leaf"]),
         stack_cap=int(tables["stack_cap"]),

@@ -257,7 +257,7 @@ class WideScene:
     inst_w2o: torch.Tensor  # (I,12) f32
     inst_i: torch.Tensor  # (n_inst,4) i32: kind, wide root, inst_id, identity
     inst_f: torch.Tensor  # (n_inst,18) f32: w2o 12, world bounds 6
-    scene: SceneData  # the plain versions trace this
+    scene: SceneData  # the plain versions trace this, alpha off as in the kernels
     meta: tuple = ()
     stack_cap: int = 256  # TPU frontier bound (table parity with the JAX prep)
     wide_depth: int = 0  # most inner wide nodes on a root-to-leaf chain
@@ -444,7 +444,7 @@ def wide_from_numpy(tables: dict, scene: SceneData) -> WideScene:
         inst_w2o=t("inst_w2o", torch.float32),
         inst_i=inst_i,
         inst_f=inst_f,
-        scene=scene,
+        scene=dataclasses.replace(scene, has_alpha=False),
         meta=meta,
         stack_cap=int(tables["stack_cap"]),
         wide_depth=_wide_depth(wc_all, [m[1] for m in meta]),

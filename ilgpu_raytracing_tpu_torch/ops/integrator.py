@@ -15,11 +15,16 @@ With a kernel scene the traces go through its kernels -- the wide K1/K2
 for a BinaryScene -- and the counting sort K3 (ops/cuda/sortpos.py); each
 runs its CUDA kernel on CUDA tensors and its plain version on CPU tensors.
 Without one the traces go to the plain tracer of ops/traverse.py directly.
+On a scene with alpha cutouts every trace peels around the kernel scene's
+closest-hit kernel (ops/alpha.py); the plain tracer tests the masks in its
+loop. Pixel batches above `chunk_pixels` run as equal chunks, trace lanes
+(spp x pixels) counted on the plain-tracer and alpha paths.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -30,6 +35,7 @@ from ilgpu_raytracing_tpu_torch.models.materials import (
     SHADING_MIRROR,
 )
 from ilgpu_raytracing_tpu_torch.models.scene import SceneData
+from ilgpu_raytracing_tpu_torch.ops import alpha as alpha_ops
 from ilgpu_raytracing_tpu_torch.ops import layout
 from ilgpu_raytracing_tpu_torch.ops import rays as rays_mod
 from ilgpu_raytracing_tpu_torch.ops import restir as restir_mod
@@ -73,18 +79,11 @@ def _pick_n_chunks(n: int, target: int) -> int:
     return 1
 
 
-def _refuse_unported(scene: SceneData, n_pixels: int, chunk_target: int) -> None:
-    if scene.has_alpha:
-        raise NotImplementedError(
-            "alpha-cutout scenes: ROADMAP Queue 1, alpha and OBJ scenes "
-            "(ops/alpha.py peel)"
-        )
-    if _pick_n_chunks(n_pixels, chunk_target) > 1:
-        raise NotImplementedError(
-            f"chunked integration ({n_pixels} px above chunk_pixels="
-            f"{chunk_target}): ROADMAP Queue 1 item 4, integrator settings that "
-            "raise (chunking)"
-        )
+def _refuse_unported(cfg: RenderConfig) -> None:
+    for knob in ("deferred_shadows", "spp_pixel_major"):
+        if getattr(cfg, knob):
+            raise NotImplementedError(
+                f"{knob}: ROADMAP Queue 1 item 4, integrator settings that raise")
 
 
 def _kernels(kscene):
@@ -97,18 +96,35 @@ def _kernels(kscene):
             wide_mod.shadow_occlusion_wide)
 
 
+def _closest_record(kscene):
+    """closest(o, d, active) -> HitRecord: the kernel scene's closest-hit
+    kernel, K6 for a BinaryScene, K1/K4 (packed record decoded) otherwise."""
+    if isinstance(kscene, binary_mod.BinaryScene):
+        return lambda oo, dd, act: binary_mod.trace_closest_binary(
+            kscene, oo, dd, active=act)
+    packed, decode, _ = _kernels(kscene)
+
+    def closest(oo, dd, act):
+        t, pp = packed(kscene, oo, dd, active=act)
+        return decode(kscene, oo, dd, t, pp)
+
+    return closest
+
+
 def _trace(scene, kscene, o, d, active=None, sort=False, morton_bounds=None,
            treelet_bounds=None):
     """Closest-hit dispatch: the kernel scene's closest-hit kernel (sorted
     around K3 for bounce batches) when one is given, the plain tracer
-    otherwise. K6 returns a whole HitRecord, which the sort restores field
-    by field (ops/sort.sorted_closest); K1/K4 return the packed record."""
+    otherwise. K6 and the alpha peel return a whole HitRecord, which the
+    sort restores field by field (ops/sort.sorted_closest); opaque K1/K4
+    return the packed record, restored as two fields and decoded in the
+    caller's lane order."""
     if kscene is None:
         return traverse.trace_closest(scene, o, d, active=active)
-    if isinstance(kscene, binary_mod.BinaryScene):
-        def closest(oo, dd, act):
-            return binary_mod.trace_closest_binary(kscene, oo, dd, active=act)
-
+    if scene.has_alpha or isinstance(kscene, binary_mod.BinaryScene):
+        closest = _closest_record(kscene)
+        if scene.has_alpha:
+            closest = functools.partial(alpha_ops.trace_closest_peel, closest, scene)
         if sort and active is not None:
             return sort_mod.sorted_closest(closest, o, d, active, morton_bounds,
                                            treelet_bounds)
@@ -126,18 +142,25 @@ def _trace(scene, kscene, o, d, active=None, sort=False, morton_bounds=None,
 
 def _shadow(scene, kscene, o, d, t_max: float, active=None, sort=False,
             morton_bounds=None, treelet_bounds=None):
-    """Any-hit dispatch (K2, K5 or K6, sorted around K3 for bounce batches). The
-    sorted path needs a scalar t_max (a per-lane limit would have to ride
-    the permutation)."""
+    """Any-hit dispatch (K2, K5 or K6, sorted around K3 for bounce batches;
+    on an alpha scene the any-hit band peeled around the closest-hit
+    kernel). The sorted path needs a scalar t_max (a per-lane limit would
+    have to ride the permutation)."""
     if kscene is None:
         return traverse.shadow_occlusion(scene, o, d, t_max, active=active)
-    if isinstance(kscene, binary_mod.BinaryScene):
-        any_hit = binary_mod.shadow_occlusion_binary
-    else:
-        _, _, any_hit = _kernels(kscene)
+    if scene.has_alpha:
+        closest = _closest_record(kscene)
 
-    def run(oo, dd, act):
-        return any_hit(kscene, oo, dd, t_max, active=act)
+        def run(oo, dd, act):
+            return alpha_ops.shadow_occlusion_peel(closest, scene, oo, dd, t_max, act)
+    else:
+        if isinstance(kscene, binary_mod.BinaryScene):
+            any_hit = binary_mod.shadow_occlusion_binary
+        else:
+            _, _, any_hit = _kernels(kscene)
+
+        def run(oo, dd, act):
+            return any_hit(kscene, oo, dd, t_max, active=act)
 
     if sort and active is not None:
         if not isinstance(t_max, (int, float)):
@@ -149,17 +172,25 @@ def _shadow(scene, kscene, o, d, t_max: float, active=None, sort=False,
 
 def primary_visibility(scene: SceneData, camera, width: int, height: int,
                        chunk_pixels: int = 0, wscene=None) -> GBuffer:
+    """Primary trace + deferred shading, in equal chunks of at most
+    `chunk_pixels` pixels (one batch when 0)."""
     n = width * height
-    _refuse_unported(scene, n, chunk_pixels)
     u, v = rays_mod.pixel_centers(width, height, scene.device)
-    o, d = rays_mod.generate_rays(camera, u, v)
-    o = o.contiguous()
-    hit = _trace(scene, wscene, o, d)
-    surf = traverse.shade_hits(scene, hit, o, d)
-    return GBuffer(
-        pos=surf.pos, normal=surf.normal, albedo=surf.albedo,
-        shading=surf.shading, ior=surf.ior, obj_id=surf.obj_id, hit=hit.hit,
-    )
+    c = _pick_n_chunks(n, chunk_pixels)
+    parts = []
+    for uc, vc in zip(u.chunk(c), v.chunk(c)):
+        o, d = rays_mod.generate_rays(camera, uc, vc)
+        o = o.contiguous()
+        hit = _trace(scene, wscene, o, d)
+        surf = traverse.shade_hits(scene, hit, o, d)
+        parts.append(GBuffer(
+            pos=surf.pos, normal=surf.normal, albedo=surf.albedo,
+            shading=surf.shading, ior=surf.ior, obj_id=surf.obj_id, hit=hit.hit,
+        ))
+    if c == 1:
+        return parts[0]
+    return GBuffer(**{k: torch.cat([getattr(p, k) for p in parts])
+                      for k in vars(parts[0])})
 
 
 def _offset_origin(pos, n, d, eps):
@@ -349,9 +380,12 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
         trace_active = alive & (~rr_kill)
         eff = eff + torch.sum(trace_active.to(torch.float32))
         ray_o = _offset_origin(pos, offn, new_dir, cfg.eps_n)
-        if final:
+        if final and not scene.has_alpha:
             # the final scatter ray only feeds a sky-visibility test: run
-            # the early-exit any-hit walk and skip hit shading
+            # the early-exit any-hit walk and skip hit shading. Alpha
+            # scenes keep the closest path: the any-hit band of their
+            # shadow peel is deliberately not the closest-hit cutout
+            # (SceneDeviceViews.cs:297-315)
             sky_w = torch.where(
                 trace_active[..., None],
                 thr * sky_ops.sky_radiance(new_dir, sky_top, sky_bottom),
@@ -459,23 +493,34 @@ def path_trace(scene: SceneData, gb: GBuffer, camera, prev_camera, res_prev,
 
     Returns (color (N,3) linear, depth (N,), obj_id (N,), res_cur,
     eff_rays), eff_rays being the count of alive trace lanes dispatched
-    (primary rays excluded). `frame` and `noise_key` are host integers."""
-    if cfg.deferred_shadows:
-        raise NotImplementedError(
-            "deferred_shadows: ROADMAP Queue 1 item 4, integrator settings that raise"
-        )
-    if cfg.spp_pixel_major:
-        raise NotImplementedError(
-            "spp_pixel_major: ROADMAP Queue 1 item 4, integrator settings that raise"
-        )
+    (primary rays excluded). `frame` and `noise_key` are host integers.
+
+    Pixel batches above the chunk target run as equal chunks, one after
+    the other. Each chunk's ReSTIR reuse still gathers from the full-image
+    G-buffer and `res_prev`, so the chunked frame equals the unchunked one
+    bit for bit."""
+    _refuse_unported(cfg)
     n = width * height
     target = cfg.chunk_pixels
-    if target and wscene is None:
-        # the plain-tracer path chunks by trace lanes in the JAX package
+    if target and (wscene is None or scene.has_alpha):
+        # the plain tracer and the alpha peel chunk by trace lanes, as the
+        # JAX package does (its while loops over spp*m lanes)
         target = max(1, target // max(1, cfg.spp))
-    _refuse_unported(scene, n, target)
+    c = _pick_n_chunks(n, target)
+    m = n // c
     pixel_idx = torch.arange(n, dtype=torch.int32, device=scene.device)
-    return _path_trace_block(
-        scene, gb, gb, pixel_idx, camera, prev_camera, res_prev, res_cur_init,
-        frame, noise_key, sun_dir, cfg, width, height, wscene,
-    )
+    outs = []
+    for k in range(c):
+        rows = slice(k * m, (k + 1) * m)
+        outs.append(_path_trace_block(
+            scene, gb, gb.map(lambda x: x[rows]), pixel_idx[rows], camera,
+            prev_camera, res_prev, res_cur_init.map(lambda x: x[rows]), frame,
+            noise_key, sun_dir, cfg, width, height, wscene,
+        ))
+    if c == 1:
+        return outs[0]
+    color, depth, obj_id, res, eff = zip(*outs)
+    res_cur = restir_mod.Reservoirs(**{
+        k: torch.cat([getattr(r, k) for r in res]) for k in vars(res[0])})
+    return (torch.cat(color), torch.cat(depth), torch.cat(obj_id), res_cur,
+            torch.stack(eff).sum())

@@ -67,3 +67,35 @@ def sample_texture_bilinear(scene: SceneData, tex_id, u, v):
     cx1 = c01 * (1.0 - tx)[..., None] + c11 * tx[..., None]
     c = cx0 * (1.0 - ty)[..., None] + cx1 * ty[..., None]
     return torch.where(valid[..., None], c, torch.ones_like(c))
+
+
+def _luma01(p):
+    c = _rgb(p)
+    return 0.2126 * c[..., 0] + 0.7152 * c[..., 1] + 0.0722 * c[..., 2]
+
+
+def sample_mask_bilinear(scene: SceneData, tex_id, u, v):
+    """Bilinear alpha mask from luma; invalid -> 1
+    (SceneDeviceViews.cs:387-415)."""
+    off, w, h, valid = _texinfo(scene, tex_id)
+    x0, y0, x1, y1, tx, ty = _bilinear_setup(u, v, w, h)
+    a00 = _luma01(_texel(scene, off, w, h, x0, y0))
+    a10 = _luma01(_texel(scene, off, w, h, x1, y0))
+    a01 = _luma01(_texel(scene, off, w, h, x0, y1))
+    a11 = _luma01(_texel(scene, off, w, h, x1, y1))
+    ax0 = a00 * (1.0 - tx) + a10 * tx
+    ax1 = a01 * (1.0 - tx) + a11 * tx
+    a = ax0 * (1.0 - ty) + ax1 * ty
+    return torch.where(valid, a, torch.ones_like(a))
+
+
+def sample_mask_point(scene: SceneData, tex_id, u, v):
+    """Point-sampled alpha mask (SceneDeviceViews.cs:417-428). torch.round
+    rounds half to even, as jnp.round does."""
+    off, w, h, valid = _texinfo(scene, tex_id)
+    fu = u - torch.floor(u)
+    fv = 1.0 - (v - torch.floor(v))
+    x = torch.round(fu * (w - 1).to(torch.float32)).to(torch.int32)
+    y = torch.round(fv * (h - 1).to(torch.float32)).to(torch.int32)
+    a = _luma01(_texel(scene, off, w, h, x, y))
+    return torch.where(valid, a, torch.ones_like(a))

@@ -8,7 +8,9 @@ tests up to `blas_leaf_max` leaf slots. Lanes that walk off the tree leave
 the working set each step, so a step costs only the lanes still walking
 (per-lane results do not depend on that bookkeeping). This is the plain
 version of the wide closest-hit and any-hit kernels (ops/cuda/wide.py) and
-the tracer the JAX package itself uses off-TPU.
+the tracer the JAX package itself uses off-TPU. On a scene with alpha
+cutouts the leaf test applies the masks in the loop (`_tri_alpha_pass`),
+which makes this walk the oracle of the peel in ops/alpha.py.
 
 Parametric t transfers 1:1 between world and object space (rays are
 transformed with the unnormalized linear part); the reference's
@@ -71,17 +73,51 @@ def _leaf_test(scene: SceneData, kind: int, slot, o, d):
     return prim, ok & (t > T_EPS), t, bu, bv
 
 
+def _tri_alpha_pass(scene: SceneData, prim, bu, bv, closest: bool):
+    """Alpha-cutout acceptance of a candidate triangle hit (True = the
+    surface is opaque here).
+
+    closest=True: bilinear mask against the cutoff
+    (SceneDeviceViews.cs:209-218). closest=False (any-hit): the +-0.10
+    point-sample band, the bilinear sample deciding only inside the band
+    (SceneDeviceViews.cs:297-315)."""
+    mat = take(scene.tri_mat, prim)
+    atex = take(scene.mat_alpha_tex, mat)
+    cutoff = take(scene.mat_alpha_cutoff, mat)
+    has_map = atex >= 0
+    w = 1.0 - bu - bv
+    uv0 = take(scene.tri_uv0, prim)
+    uv1 = take(scene.tri_uv1, prim)
+    uv2 = take(scene.tri_uv2, prim)
+    uu = uv0[..., 0] * w + uv1[..., 0] * bu + uv2[..., 0] * bv
+    vv = uv0[..., 1] * w + uv1[..., 1] * bu + uv2[..., 1] * bv
+    if closest:
+        a = tex_ops.sample_mask_bilinear(scene, atex, uu, vv)
+        return torch.where(has_map, a >= cutoff, torch.ones_like(has_map))
+    band = 0.10
+    a_pt = tex_ops.sample_mask_point(scene, atex, uu, vv)
+    sure_reject = a_pt < cutoff - band
+    sure_accept = a_pt >= cutoff + band
+    a_lin = tex_ops.sample_mask_bilinear(scene, atex, uu, vv)
+    in_band = (~sure_reject) & (~sure_accept)
+    ok = sure_accept | (in_band & (a_lin >= cutoff))
+    return torch.where(has_map, ok, torch.ones_like(has_map))
+
+
 def _blas_walk(scene: SceneData, o_obj, d_obj, start_cur, t_max0, kind: int,
                any_hit: bool):
     """BLAS skip-index walk for one instance over all lanes.
 
     any_hit=False -> (t_obj, prim, bu, bv): closest hit in object space
       (T_INF when none), pruned against t_max0.
-    any_hit=True  -> occluded mask: any accepted hit with t < t_max0."""
+    any_hit=True  -> occluded mask: any accepted hit with t < t_max0.
+    On an alpha scene a triangle hit counts only where `_tri_alpha_pass`
+    accepts it (the closest-hit rule, or the any-hit band)."""
     n = o_obj.shape[0]
     dev = o_obj.device
     inv_obj = vec.inv_dir(d_obj)
     leaf_max = scene.blas_leaf_max
+    alpha = scene.has_alpha and kind == KIND_TRI
 
     if any_hit:
         state = [torch.zeros((n,), dtype=torch.bool, device=dev)]
@@ -115,7 +151,9 @@ def _blas_walk(scene: SceneData, o_obj, d_obj, start_cur, t_max0, kind: int,
                 stl = tlim[sub]
                 for i in range(leaf_max):
                     valid = (i < scount) & (~occ)
-                    _p, ok, t, _bu, _bv = _leaf_test(scene, kind, sfirst + i, so, sd)
+                    prim, ok, t, bu, bv = _leaf_test(scene, kind, sfirst + i, so, sd)
+                    if alpha:
+                        ok = ok & _tri_alpha_pass(scene, prim, bu, bv, closest=False)
                     occ = occ | (valid & ok & (t > T_EPS) & (t < stl))
                 live[0][sub] = occ
             else:
@@ -123,6 +161,8 @@ def _blas_walk(scene: SceneData, o_obj, d_obj, start_cur, t_max0, kind: int,
                 for i in range(leaf_max):
                     valid = i < scount
                     prim, ok, t, bu, bv = _leaf_test(scene, kind, sfirst + i, so, sd)
+                    if alpha:
+                        ok = ok & _tri_alpha_pass(scene, prim, bu, bv, closest=True)
                     accept = valid & ok & (t > T_EPS) & (t < t_best)
                     t_best = torch.where(accept, t, t_best)
                     prim_best = torch.where(accept, prim, prim_best)

@@ -14,7 +14,10 @@ moves work to another device or swaps a kernel for its plain version on
 its own. A caller may set `r.wscene = binary.prepare_binary(r.scene)`
 (ops/cuda/binary.py) after construction, as the JAX package's callers set
 `r.pscene = traverse_kernel.prepare(scene)`: every trace of the frame then
-runs the binary skip-index kernel K6.
+runs the binary skip-index kernel K6. A scene with alpha cutouts (an OBJ
+with `map_d`, models/sponza_like.py) routes by size like any other, and
+every trace of its frame peels around the closest-hit kernel of its route,
+K1, K4 or K6 (ops/alpha.py): the any-hit kernels do not run on it.
 """
 
 from __future__ import annotations

@@ -237,15 +237,17 @@ def test_renderer_on_cpu_and_refusals(scenes, tmp_path):
                                 device="cpu")
         with pytest.raises(NotImplementedError):
             rr.render()
-    alpha = trenderer.Renderer(OUT, OUT, RenderConfig(),
+    # alpha scenes render (the peel around the plain K1), and chunking runs
+    alpha = trenderer.Renderer(OUT, OUT, RenderConfig(spp=1, max_depth=2),
                                dataclasses.replace(ts, has_alpha=True), tcam(OUT, OUT),
                                device="cpu")
-    with pytest.raises(NotImplementedError):
-        alpha.render()
-    # chunking refers to the open ROADMAP item that ports it
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1 item 4, integrator settings that raise "
-                             r"\(chunking\)"):
-        tint._refuse_unported(ts, 4 * 4096, 4096)
+    assert alpha.render().shape == (OUT * OUT,)
+    assert tint._refuse_unported(RenderConfig(chunk_pixels=1024)) is None
+    # the two knobs still refused name the open ROADMAP item that ports them
+    for knob in ("deferred_shadows", "spp_pixel_major"):
+        with pytest.raises(NotImplementedError,
+                           match=knob + r": ROADMAP Queue 1 item 4, integrator settings "
+                                        r"that raise"):
+            tint._refuse_unported(RenderConfig(**{knob: True}))
     with pytest.raises(NotImplementedError):
         trenderer.Renderer(OUT, OUT, mesh=object(), device="cpu")

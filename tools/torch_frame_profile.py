@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
 """Where the time of one of the port's 1080p frames goes, on one GPU.
 
-Renders, through the port's Renderer, either the Cornell bench frame
+Renders, through the port's Renderer, the Cornell bench frame
 (`--scene cornell`, the default: tess=24, sphere_tess=(48,72), leaf 8, SAH;
-spp=2, max_depth=3; sun (0.3, 0.6)) or the 1,048,576-triangle terrain of
+spp=2, max_depth=3; sun (0.3, 0.6)), the 1,048,576-triangle terrain of
 examples/large_mesh.py (`--scene terrain`: leaf 64, SAH; spp=2,
-max_depth=8), both 1920x1080 out: two warm-up frames, then FRAMES frames
+max_depth=8), or the Sponza-like courtyard (`--scene courtyard`: alpha
+cutouts, every trace peeled around K1, 2 chunks; `courtyard-opaque`: the
+same tables with has_alpha off; median BVH, leaf 8; spp=2, max_depth=3;
+sun (0.3, 0.6)), all 1920x1080 out: two warm-up frames, then FRAMES frames
 under torch.profiler. Prints the wall time per frame, the device-busy share
 (sum of GPU kernel and memcpy time over wall time), the share of the
 hand-written kernels, and the top GPU kernels by total time.
 
 Run from the repository root on a machine with one CUDA card:
-    python3 tools/torch_frame_profile.py [--scene cornell|terrain]
+    python3 tools/torch_frame_profile.py [--scene cornell|terrain|courtyard|courtyard-opaque]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -30,7 +35,8 @@ OWN_KERNELS = ("trace_kernel", "anyhit_kernel", "hist_kernel", "scan_kernel", "r
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("cornell", "terrain"), default="cornell")
+    ap.add_argument("--scene", choices=("cornell", "terrain", "courtyard", "courtyard-opaque"),
+                    default="cornell")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_profile: no CUDA device", file=sys.stderr)
@@ -50,6 +56,21 @@ def main() -> int:
         _, scene = build_terrain_scene(device="cuda")
         r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=8), scene,
                      terrain_camera(1920, 1080), device="cuda")
+    elif args.scene.startswith("courtyard"):
+        from ilgpu_raytracing_tpu_torch.models.sponza_like import (
+            build_sponza_like_scene,
+            sponza_camera,
+        )
+        from ilgpu_raytracing_tpu_torch.utils.build import BUILD_DIR
+
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d:
+            _, scene = build_sponza_like_scene(d, device="cuda")
+        if args.scene == "courtyard-opaque":
+            scene = dataclasses.replace(scene, has_alpha=False)
+        r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3), scene,
+                     sponza_camera(1920, 1080), device="cuda")
+        r.sun_azimuth, r.sun_elevation = 0.3, 0.6
     else:
         from ilgpu_raytracing_tpu_torch.models.cornell import (
             build_cornell_scene,
