@@ -21,7 +21,16 @@ PyTorch version on the card:
   materials, TGA diffuse textures and alpha-cutout banners, loaded through
   the OBJ/MTL parser; median BVH, leaf 8) at 1920x1080, spp=2,
   max_depth=3: every trace peels around K1 (ops/alpha.py), K3 sorts the
-  bounce batches, and `path_trace` runs in 2 chunks, through `Renderer`.
+  bounce batches, and `path_trace` runs in 2 chunks, through `Renderer`;
+- BASELINE config 4 (`examples/animate.py`'s loop) on the bench scene at
+  1920x1080: every frame `refit_mesh_instance`, `Renderer.set_scene` (the
+  kernel tables re-prepared) and an orbiting camera, progressive
+  accumulation, through K1/K2/K3;
+- the interactive session (`runtime/interactive.py` over
+  `runtime/controller.py`) at 1920x1080 on the default 6-sphere scene;
+- the bench frame with each integrator setting, `deferred_shadows` (one
+  K2 dispatch over every visibility ray of the frame) and
+  `spp_pixel_major`.
 
 Phases:
   1. device: the card's name and power limit;
@@ -66,8 +75,27 @@ Phases:
      `cleanup_after=1` on all 1,802,240 sorted bounce lanes, each equal to
      K1 (t and pp) on every lane; one K7 round equal to its plain version
      on the first 65,536 lanes; timed;
- 11. terrain prep: the host BVH build and the streaming prep, timed apart;
- 12. K4 closest hit / K5 any-hit vs the plain walk on strided subsets of
+ 11. the integrator settings on the 1080p bench frame: `deferred_shadows`
+     and `spp_pixel_major` each against the default, the three arms in
+     turns after one warm-up each: the deferred colour within rtol 3e-5,
+     atol 3e-6 and the pixel-major colour and packed frame bit-equal, eff
+     and the reservoirs bit-equal, every frame; launch counts per arm
+     (deferred: K2 2 and K3 3 a frame);
+ 12. BASELINE config 4 at 1080p: examples/animate.py's loop on the bench
+     scene (refit_mesh_instance of the bobbing sphere, Renderer.set_scene,
+     orbiting camera, progressive accumulation), one warm-up and 4 timed
+     frames with the refit, set_scene (read-back + leaf packing, 8-wide
+     collapse, upload) and render ms of each and the launch counts; K1/K2
+     on the refit tables against the plain walk, K1 on them against K1 on
+     a fresh SAH build of the moved geometry (hit masks equal, t within
+     1e-5); a 64x64 refit frame pair, card vs CPU, at the golden bar;
+ 13. the interactive session at 1080p on the default 6-sphere scene: a
+     scripted input of W, mouse look, Shift+D, scroll, Space and one
+     EventPump step, a presenter keeping frame_rgb(); the frame count, the
+     camera's move and turn, distinct frames, launch counts, ms/frame and
+     the HUD text;
+ 14. terrain prep: the host BVH build and the streaming prep, timed apart;
+ 15. K4 closest hit / K5 any-hit vs the plain walk on strided subsets of
      the terrain's primary rays and 1,802,240 treelet-sorted bounce rays,
      held to the bar of tests/test_stream_kernel.py (hit masks equal, no
      |dt| > 1e-3 where both hit, prim agreement > 99.5%, K5 equal at t_max
@@ -79,22 +107,22 @@ Phases:
      depth of the terrain's binary BVH against K6's stack bound; K4
      called with a stack cap of 1 on the terrain's bounce lanes must fail
      the walk's device-side assert (in a child process);
- 13. K8: `trace_closest_treelet_stream_packed` on the terrain's 1,802,240
+ 16. K8: `trace_closest_treelet_stream_packed` on the terrain's 1,802,240
      treelet-sorted bounce lanes equal to K4 (t and pp) on every lane; one
      K8 round equal to its plain version on the first 65,536 lanes; timed;
      ptxas's report of csrc/streamtreelet_trace.cu;
- 14. a 64x64 small-terrain (4,096 triangles) frame pair through the
+ 17. a 64x64 small-terrain (4,096 triangles) frame pair through the
      integrator with a StreamScene, kernels on the card vs plain on the
      CPU, held to the golden-image bar;
- 15. the terrain main path: one warm-up and 3 timed 1080p frames, each
+ 18. the terrain main path: one warm-up and 3 timed 1080p frames, each
      copied to the host, with every kernel's launch count checked;
- 16. K1/K2 vs the plain walk on the courtyard's 1280x720 primary rays (the
+ 19. K1/K2 vs the plain walk on the courtyard's 1280x720 primary rays (the
      opaque tables, has_alpha off, barycentrics on), at the bar of phase 4;
      K1 timed there, with its boxes, primitives and bound;
- 17. 64x64 courtyard frame pairs, kernels (the peel around K1, and around
+ 20. 64x64 courtyard frame pairs, kernels (the peel around K1, and around
      K4 on a StreamScene of the courtyard) on the card vs plain versions on
      the CPU, held to the golden-image bar;
- 18. the courtyard main path: one warm-up and 3 timed 1080p frames, each
+ 21. the courtyard main path: one warm-up and 3 timed 1080p frames, each
      copied to the host: K1 and K3 launched, K2, K4-K8 not, `path_trace` in
      2 chunks, the peel rounds of every trace counted (K1 launches equal
      their sum); then the same tables with has_alpha off (the opaque
@@ -132,6 +160,8 @@ K6_FRAMES = 3
 TERRAIN_FRAMES = 3
 COURTYARD_FRAMES = 3
 COURTYARD_PAIRS = 4  # alpha and opaque-control frames timed in turns
+CONFIG4_FRAMES = 4  # refit frames timed after one warm-up
+SETTINGS_FRAMES = 3  # frames of each integrator-setting arm after one warm-up
 T_REL_TOL = 1e-3
 SUBSET = 65_536  # rays of each terrain population held to the plain walk
 K3_LANES = 1_802_240  # 2 x 901,120: the frame's sorted bounce batches
@@ -1307,6 +1337,353 @@ def phase_courtyard_main(dev, scene):
     return counts
 
 
+def _settings_bar(label, want, got, deferred: bool):
+    """The integrator-setting arm `got` against the default arm `want` after
+    the same frame: colour within the JAX package's bar for the deferred
+    queue (rtol 3e-5, atol 3e-6, tests/test_deferred_shadows.py) or
+    bit-equal for the lane layout; eff and the reservoirs bit-equal (every
+    field for the layout; w_sum, m, pdf, light_id for the queue, as JAX's
+    test holds them); the packed frame bit-equal for the layout. Returns
+    the max |colour difference|."""
+    ca, cb = want._last_aux["color"], got._last_aux["color"]
+    err = float((ca - cb).abs().max())
+    if deferred:
+        close = torch.isclose(cb, ca, rtol=3e-5, atol=3e-6)
+        check(bool(close.all()), f"{label}: colour outside rtol 3e-5, atol 3e-6 on "
+                                 f"{int((~close).sum())} values (max |diff| {err:.3e})")
+        fields = ("w_sum", "m", "pdf", "light_id")
+    else:
+        check(bool(torch.equal(ca, cb)), f"{label}: colour differs (max |diff| {err:.3e})")
+        check(bool(torch.equal(want._last_packed, got._last_packed)),
+              f"{label}: packed frame differs")
+        fields = tuple(vars(want.state.res_cur))
+    check(float(want._last_aux["eff_rays"]) == float(got._last_aux["eff_rays"]),
+          f"{label}: eff {float(got._last_aux['eff_rays'])} != "
+          f"{float(want._last_aux['eff_rays'])}")
+    for f in fields:
+        check(bool(torch.equal(getattr(want.state.res_cur, f),
+                               getattr(got.state.res_cur, f))),
+              f"{label}: reservoir field {f} differs")
+    return err
+
+
+def phase_settings(dev, bench):
+    """The two integrator settings on the 1080p bench frame, each against
+    the default arm after the same frame, the three arms rendered in turns
+    with one warm-up each: `deferred_shadows` (one frame-wide sorted
+    any-hit dispatch) and `spp_pixel_major` (a pixel's samples on adjacent
+    lanes). Launch counts are read around each arm's timed frames."""
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.models.cornell import cornell_camera
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    knobs = {"default": {}, "deferred_shadows": dict(deferred_shadows=True),
+             "spp_pixel_major": dict(spp_pixel_major=True)}
+    arms = {}
+    for name, kw in knobs.items():
+        r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3, **kw), bench["scene"],
+                     cornell_camera(1920, 1080), device=dev)
+        r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+        arms[name] = r
+    order = list(arms)
+    ms = {k: [] for k in arms}
+    counts = {k: _want() for k in arms}
+    err = {"deferred_shadows": 0.0, "spp_pixel_major": 0.0}
+    for k in range(1 + SETTINGS_FRAMES):
+        for name in (order if k % 2 == 0 else order[::-1]):
+            _reset_counts()
+            tf = time.monotonic()
+            arms[name].render().cpu()
+            torch.cuda.synchronize()
+            if k > 0:  # frame 0 is the arm's warm-up
+                ms[name].append((time.monotonic() - tf) * 1e3)
+                for c, v in _read_counts().items():
+                    counts[name][c] += v
+        for name in err:
+            err[name] = max(err[name], _settings_bar(
+                f"{name} frame {k}", arms["default"], arms[name],
+                name == "deferred_shadows"))
+    f = SETTINGS_FRAMES
+    per_frame = {k: {c: v / f for c, v in cs.items() if v} for k, cs in counts.items()}
+    want = {"default": _want(wide_closest=3, wide_shadow=5, sortpos=6),
+            "deferred_shadows": _want(wide_closest=3, wide_shadow=2, sortpos=3),
+            "spp_pixel_major": _want(wide_closest=3, wide_shadow=5, sortpos=6)}
+    for name in arms:
+        check(counts[name] == {c: v * f for c, v in want[name].items()},
+              f"{name} launches per frame {per_frame[name]}")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"settings on the 1080p bench frame, {1 + f} frames each, in turns: colour vs "
+        f"the default arm max |diff| deferred_shadows {err['deferred_shadows']:.3e} "
+        f"(bar rtol 3e-5, atol 3e-6), spp_pixel_major {err['spp_pixel_major']:.3e} "
+        f"(bit-equal, packed frame too); eff and reservoirs bit-equal on every frame")
+    log("settings launches per frame: " + "; ".join(
+        f"{k} {v}" for k, v in per_frame.items()))
+    log("settings frame ms in turns: " + "; ".join(
+        f"{k} {[round(x, 3) for x in v]}" for k, v in ms.items())
+        + "; medians " + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f"; ratio deferred / default {med['deferred_shadows'] / med['default']:.4f}, "
+        f"pixel-major / default {med['spp_pixel_major'] / med['default']:.4f}")
+    _queue_k2(arms["default"], arms["deferred_shadows"])
+    total = _want()
+    for cs in counts.values():
+        for c, v in cs.items():
+            total[c] += v
+    return total
+
+
+def _queue_k2(default, deferred):
+    """K2 at the deferred queue's shape: the arguments of every K2 call of
+    one more frame of each arm, kept by a spy; the queue's one launch over
+    (max_depth + 1) x 1,802,240 lanes timed beside the sum of the default
+    frame's launches that it replaces (the sorted ReSTIR and sky batches),
+    with the queue launch's boxes, primitives and bound. Not launches of
+    the main path."""
+    from ilgpu_raytracing_tpu_torch.ops.cuda import wide
+
+    real = wide.shadow_occlusion_wide
+    calls = {"default": [], "deferred": []}
+    try:
+        for name, r in (("default", default), ("deferred", deferred)):
+            wide.shadow_occlusion_wide = (
+                lambda *a, _k=name, **kw: calls[_k].append((a, kw)) or real(*a, **kw))
+            r.render().cpu()
+    finally:
+        wide.shadow_occlusion_wide = real
+    torch.cuda.synchronize()
+    biggest = max(calls["default"], key=lambda c: c[0][1].shape[0])[0][1].shape[0]
+    replaced = [c for c in calls["default"] if c[0][1].shape[0] == biggest]
+    (ws, o, d, t_max), kw = max(calls["deferred"], key=lambda c: c[0][1].shape[0])
+    n = o.shape[0]
+    check(n == len(replaced) * biggest, f"queue K2 launch of {n} lanes replaces "
+          f"{len(replaced)} of {biggest}")
+    ms_q = cuda_ms(lambda: real(ws, o, d, t_max, **kw), 5)
+    ms_r = [cuda_ms(lambda a=a, k=k: real(*a, **k), 5) for a, k in replaced]
+    act = kw["active"]
+    tms = torch.where(act, torch.full((n,), float(t_max), device=o.device),
+                      torch.zeros(n, device=o.device))
+    work = wide.count_work(ws, o, d, tms, any_hit=True)
+    tables = (ws.nodes, ws.tri_rows, ws.sph_rows, ws.inst_i, ws.inst_f)
+    log(f"K2 at the deferred queue's launch: {n} lanes ({int(act.sum())} live) "
+        f"{ms_q:.4f} ms, {work[0]} boxes, {work[1]} primitives, bound "
+        f"{trace_bound(n, work, True, BOX_OPS, tables)}; the default frame's "
+        f"{len(replaced)} launches of {biggest} lanes it replaces: "
+        f"{', '.join(f'{x:.4f}' for x in ms_r)} ms, sum {sum(ms_r):.4f} ms")
+
+
+def _orbit_camera(phase, w, h):
+    from ilgpu_raytracing_tpu_torch.models.camera import Camera
+
+    return Camera.look_at(
+        (3.2 * np.sin(phase * 0.25), 0.2, 3.2 * np.cos(phase * 0.25)),
+        (0, 0, 0), (0, 1, 0), 40.0, w / h)
+
+
+def _bob(base, verts, n_sphere, phase):
+    """examples/animate.py's motion: the sphere's vertices (the last
+    `n_sphere` of the mesh) bob by 0.15 sin(phase)."""
+    moved = base.copy()
+    moved[-n_sphere:, 1] += np.float32(0.15 * np.sin(phase))
+    return moved[verts]
+
+
+def phase_config4(dev):
+    """BASELINE config 4 at 1080p: examples/animate.py's loop on the bench
+    Cornell scene (sphere_tess (48, 72): 49 x 72 sphere vertices bob), each
+    frame refit_mesh_instance -> Renderer.set_scene -> set_camera (orbit)
+    -> render with progressive accumulation, copied to the host. set_scene
+    is split by spies into its read-back and leaf packing (wide.prepare),
+    the 8-wide collapse (wide.prepare_wide) and the upload
+    (wide.wide_from_numpy). Then the refit tables' K1 primary hits against
+    the plain walk on the same tables and against K1 on a fresh build of
+    the moved geometry, and a 64x64 refit frame pair, card vs CPU."""
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.models.cornell import (
+        build_cornell_scene,
+        cornell_camera,
+    )
+    from ilgpu_raytracing_tpu_torch.models.scene import SceneBuilder, refit_mesh_instance
+    from ilgpu_raytracing_tpu_torch.ops import rays
+    from ilgpu_raytracing_tpu_torch.ops.cuda import wide
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    builder, scene = build_cornell_scene(tess=24, sphere_tess=(48, 72), blas_leaf_size=8,
+                                         bvh_method="sah", device=dev)
+    inst = builder.instances[0]
+    verts = slice(inst.vertex_first, inst.vertex_first + inst.vertex_count)
+    base = builder.positions.copy()
+    n_sphere = 49 * 72
+    r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3, progressive_accumulation=True),
+                 scene, _orbit_camera(0.0, 1920, 1080), device=dev)
+    r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+    spent = {"prepare": 0.0, "prepare_wide": 0.0, "wide_from_numpy": 0.0}
+
+    @contextlib.contextmanager
+    def prep_spies():
+        real = {k: getattr(wide, k) for k in spent}
+
+        def timed(name):
+            def run(*a, **kw):
+                t0 = time.monotonic()
+                out = real[name](*a, **kw)
+                torch.cuda.synchronize()
+                spent[name] += time.monotonic() - t0
+                return out
+            return run
+
+        for k in spent:
+            setattr(wide, k, timed(k))
+        try:
+            yield
+        finally:
+            for k, fn in real.items():
+                setattr(wide, k, fn)
+
+    n_frames = 1 + CONFIG4_FRAMES
+    rows = []
+    with prep_spies():
+        for f in range(n_frames):
+            if f == 1:  # frame 0 is the warm-up
+                _reset_counts()
+            phase = 2.0 * np.pi * f / n_frames
+            for k in spent:
+                spent[k] = 0.0
+            t0 = time.monotonic()
+            new = refit_mesh_instance(builder, r.scene, 0, _bob(base, verts, n_sphere, phase))
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            r.set_scene(new)
+            torch.cuda.synchronize()
+            t2 = time.monotonic()
+            r.set_camera(_orbit_camera(phase, 1920, 1080))
+            packed = r.render().cpu()
+            torch.cuda.synchronize()
+            t3 = time.monotonic()
+            rows.append(dict(refit=(t1 - t0) * 1e3, set_scene=(t2 - t1) * 1e3,
+                             render=(t3 - t2) * 1e3,
+                             **{k: v * 1e3 for k, v in spent.items()}))
+    launches = _read_counts()
+    timed_rows = rows[1:]
+    per_frame = {k: v / CONFIG4_FRAMES for k, v in launches.items()}
+    log(f"config 4 (1080p, {r.in_w}x{r.in_h} internal, per-frame refit of "
+        f"{inst.prim_count} triangles / {inst.blas_node_count} BLAS nodes, progressive "
+        f"accumulation, orbiting camera): {CONFIG4_FRAMES} timed frames after 1 warm-up")
+    for i, row in enumerate(rows):
+        log(f"config 4 frame {i}{' (warm-up)' if i == 0 else ''} ms: refit "
+            f"{row['refit']:.3f}, set_scene {row['set_scene']:.3f} (read-back + leaf "
+            f"packing {row['prepare']:.3f}, 8-wide collapse "
+            f"{row['prepare_wide'] - row['wide_from_numpy']:.3f}, upload "
+            f"{row['wide_from_numpy']:.3f}), render + copy {row['render']:.3f}")
+    mean = {k: float(np.mean([row[k] for row in timed_rows])) for k in rows[0]}
+    log(f"config 4 mean ms/frame over the timed frames: refit {mean['refit']:.3f}, "
+        f"set_scene {mean['set_scene']:.3f}, render + copy {mean['render']:.3f}, total "
+        f"{mean['refit'] + mean['set_scene'] + mean['render']:.3f}")
+    t0 = time.monotonic()
+    r.scene.blas_ifields.cpu(), r.scene.tri_prim_idx.cpu()
+    log(f"config 4: the refit's read-back of blas_ifields + tri_prim_idx "
+        f"({r.scene.blas_ifields.numel() * 4 + r.scene.tri_prim_idx.numel() * 4} B) "
+        f"{(time.monotonic() - t0) * 1e3:.3f} ms")
+    log(f"config 4 launches per frame: {per_frame}")
+    check(per_frame == _want(wide_closest=3, wide_shadow=5, sortpos=6),
+          f"config 4 launch counts {per_frame}")
+    img = packed.numpy()
+    check(bool(torch.isfinite(r._last_aux["color"]).all()), "config 4 colour has NaN/Inf")
+    check(len(np.unique(img)) > 1 and img.shape == (1920 * 1080,),
+          f"config 4 frame: shape {img.shape}, {len(np.unique(img))} colours")
+    # the orbiting camera moves every frame, so every frame restarts the
+    # accumulation, as in examples/animate.py
+    check(r.state.accum_count == 1, f"config 4 accumulation count {r.state.accum_count}")
+
+    # the refit tables against the plain walk on them, and against a fresh
+    # build of the moved geometry (tests/test_bvh.py's bar: hit masks equal,
+    # t within 1e-5)
+    in_w, in_h = r.in_w, r.in_h
+    o, d = rays.generate_primary_rays(r.camera, in_w, in_h, dev)
+    o = o.contiguous()
+    k1_err, k2_err = _trace_bar(r.wscene, o, d, "config 4 primary (refit tables)")
+    fresh_b = SceneBuilder(blas_leaf_size=8, bvh_method="sah")
+    for m in builder.materials:
+        fresh_b.add_material(m)
+    fresh_b.add_mesh_instance(builder.positions[verts], builder.tri_indices, tri_mat=builder.tri_mat)
+    fresh = wide.prepare_scene(fresh_b.commit(dev))
+    t_r, pp_r = wide.trace_closest_wide_packed(r.wscene, o, d)
+    t_f, pp_f = wide.trace_closest_wide_packed(fresh, o, d)
+    hit_r, hit_f = pp_r >= 0, pp_f >= 0
+    check(bool(torch.equal(hit_r, hit_f)),
+          f"config 4: refit and fresh-build hit masks differ on {int((hit_r != hit_f).sum())} rays")
+    both = hit_r & hit_f
+    close = torch.isclose(t_r[both], t_f[both], rtol=1e-5, atol=1e-5)
+    check(bool(close.all()), f"config 4: refit t off the fresh build's on {int((~close).sum())} rays")
+    log(f"config 4 K1 on the refit tables vs K1 on a fresh SAH build of the moved geometry, "
+        f"{o.shape[0]} primary rays: hit masks equal ({int(hit_r.sum())} hits), max |dt| "
+        f"{float((t_r[both] - t_f[both]).abs().max()):.3e}, prim differs on "
+        f"{int((pp_r != pp_f)[both].sum())}")
+
+    # 64x64 refit frame pair, card vs CPU
+    sb, small = build_cornell_scene(tess=4, sphere_tess=(8, 12), device="cpu")
+    si = sb.instances[0]
+    sv = slice(si.vertex_first, si.vertex_first + si.vertex_count)
+    small = refit_mesh_instance(sb, small, 0, _bob(sb.positions.copy(), sv, 9 * 12, 1.3))
+    _parity(dev, "Cornell refit", small, wide.prepare_scene, cornell_camera)
+    return launches, (k1_err, k2_err)
+
+
+def phase_session(dev):
+    """The interactive session at 1080p on the default 6-sphere scene: a
+    scripted input of W, mouse look, Shift+D, scroll, Space and one step fed
+    through an EventPump, with a presenter that keeps frame_rgb() and the
+    HUD text."""
+    from ilgpu_raytracing_tpu_torch.runtime.controller import InputState
+    from ilgpu_raytracing_tpu_torch.runtime.interactive import (
+        EventPump,
+        InteractiveSession,
+        scripted_input,
+    )
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    r = Renderer(1920, 1080, device=dev)
+    r.render().cpu()  # warm-up
+    script = scripted_input([
+        InputState(w=True), InputState(mouse_dx=40.0, mouse_dy=-10.0),
+        InputState(d=True, shift=True), InputState(scroll_dy=2.0), InputState(up=True),
+    ])
+    pump = EventPump()
+
+    def provider(frame):
+        if frame < 5:
+            return script(frame)
+        if frame == 5:
+            pump.key_down("a")
+            pump.mouse_move(100, 100)
+            pump.mouse_move(130, 90)
+            return pump.poll()
+        return None
+
+    shown = []
+    start = r.camera
+    sess = InteractiveSession(r, provider,
+                              presenter=lambda rgb, hud: shown.append((rgb.copy(), hud)))
+    _reset_counts()
+    t0 = time.monotonic()
+    n = sess.run()
+    dt = time.monotonic() - t0
+    launches = _read_counts()
+    check(n == 6 and len(shown) == 6, f"session ran {n} frames, presented {len(shown)}")
+    check(not np.allclose(r.camera.origin, start.origin), "session camera did not move")
+    check(not np.allclose(r.camera.forward, start.forward), "session camera did not turn")
+    check(all(rgb.shape == (1080, 1920, 3) for rgb, _ in shown), "session frame shape")
+    check(not np.array_equal(shown[0][0], shown[-1][0]), "session frames are all the same")
+    check(sess.controller.fov_degrees == 56.0, f"session fov {sess.controller.fov_degrees}")
+    per_frame = {k: v / n for k, v in launches.items()}
+    check(per_frame == _want(wide_closest=3, wide_shadow=5, sortpos=6),
+          f"session launch counts {per_frame}")
+    log(f"interactive session 1080p ({r.in_w}x{r.in_h} internal, default 6-sphere scene): "
+        f"{n} frames in {dt:.4f} s, ms/frame {dt / n * 1e3:.3f} (input, render, "
+        f"frame_rgb copy, present); HUD '{shown[-1][1]}'; camera moved "
+        f"{float(np.linalg.norm(r.camera.origin - start.origin)):.4f}, fov "
+        f"{sess.controller.fov_degrees}; launches per frame {per_frame}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1340,7 +1717,12 @@ def main() -> int:
     timed("K6 parity", phase_k6_parity, dev)
     k6_counts = timed("K6 main path", phase_k6_main_path, dev, bench)
     k7_counts = timed("K7", phase_k7, dev, results, bench)
+    settings_counts = timed("integrator settings", phase_settings, dev, bench)
     del bench
+    config4_counts, c4_err = timed("config 4", phase_config4, dev)
+    for name, err in zip(("wide_closest", "wide_shadow"), c4_err):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    session_counts = timed("interactive session", phase_session, dev)
     court = timed("courtyard K1/K2", phase_courtyard_k1_k2, dev, results)
     timed("courtyard parity", phase_courtyard_parity, dev)
     court_counts = timed("courtyard main path", phase_courtyard_main, dev, court)
@@ -1397,7 +1779,7 @@ def main() -> int:
     # entry); K3 runs on all of them. Every bar was checked above, so a
     # kernel that reaches this line met it.
     paths = (cornell_counts, k6_counts, k7_counts, court_counts, terrain_counts,
-             k8_counts)
+             k8_counts, settings_counts, config4_counts, session_counts)
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=sum(c[name] for c in paths), bar=bar, result="met",

@@ -2,10 +2,9 @@
 
 Same fields, same defaults, same `internal_resolution` policy; the
 reference package's config docstring carries the citation and the
-measurement behind every default. Knobs whose code path this port has not
-reached yet (`deferred_shadows`, `spp_pixel_major`, chunking above
-`chunk_pixels`) are accepted here and refused by the integrator with
-`NotImplementedError`.
+measurement behind every default. Every knob is honoured by the port's
+integrator (`deferred_shadows` on a kernel scene without alpha, as the JAX
+package applies it with a Pallas scene).
 """
 
 from __future__ import annotations

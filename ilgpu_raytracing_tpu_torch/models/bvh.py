@@ -1,5 +1,5 @@
-"""Skip-index BVH builder (host, numpy; port of models/bvh.py: build and
-the treelet cut of the streaming sort key).
+"""Skip-index BVH builder (host, numpy; port of models/bvh.py: build,
+refit and the treelet cut of the streaming sort key).
 
 Median split on the largest-extent axis with the reference's tie-break
 rules, RIGHT subtree emitted before LEFT so a left subtree's miss pointer is
@@ -113,6 +113,35 @@ def _build_skip_index_bvh_py(
         np.array(node_int, dtype=np.int32),
         np.concatenate(leaf_order).astype(np.int32),
     )
+
+
+def refit_bvh(
+    node_ifields: np.ndarray,
+    leaf_order: np.ndarray,
+    prim_bmin: np.ndarray,
+    prim_bmax: np.ndarray,
+):
+    """Refit node bounds to moved primitives, keeping topology. Returns
+    (node_bmin, node_bmax).
+
+    Nodes are emitted parent-before-children, so a reverse sweep sees
+    children before parents; right subtrees are emitted first, so the right
+    child of inner node i is `i + 1`. Min and max round nothing: the native
+    refit (native.refit_bvh) gives the same bits."""
+    n = node_ifields.shape[0]
+    node_bmin = np.empty((n, 3), dtype=np.float32)
+    node_bmax = np.empty((n, 3), dtype=np.float32)
+    for i in range(n - 1, -1, -1):
+        left, first, count, _skip = node_ifields[i]
+        if count > 0:
+            prim_ids = leaf_order[first: first + count]
+            node_bmin[i] = prim_bmin[prim_ids].min(axis=0)
+            node_bmax[i] = prim_bmax[prim_ids].max(axis=0)
+        else:
+            right = i + 1
+            node_bmin[i] = np.minimum(node_bmin[left], node_bmin[right])
+            node_bmax[i] = np.maximum(node_bmax[left], node_bmax[right])
+    return node_bmin, node_bmax
 
 
 def sphere_bounds(center: np.ndarray, radius: np.ndarray):

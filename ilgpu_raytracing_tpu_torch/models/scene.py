@@ -2,7 +2,9 @@
 (port of models/scene.py).
 
 `SceneBuilder` assembles primitives, materials and per-instance BLAS on the
-host; `commit(device)` produces a `SceneData`, a plain dataclass of tensors
+host; `commit(device)` produces a `SceneData`; `refit_mesh_instance` moves
+one mesh instance's vertices and refits its BLAS and the TLAS into a new
+`SceneData`. `SceneData` is a plain dataclass of tensors
 with the same fields and layout as the JAX package's pytree: baked
 `(v0, e1, e2)` triangle rows, instances split by BLAS type, packed
 `(left, first, count, skip)` node fields, 0xAARRGGBB texels (uint32 values
@@ -168,6 +170,10 @@ class SceneData:
     has_alpha: bool = False
     blas_leaf_max: int = 4
     tlas_leaf_max: int = 2
+
+    @property
+    def n_spheres(self) -> int:
+        return self.sph_center.shape[0]
 
     @property
     def n_tris(self) -> int:
@@ -524,3 +530,84 @@ def build_default_scene(blas_leaf_size: int = 4, tlas_leaf_size: int = 2,
         for sid in (ground, s0, s1, s2, s_mirror, s_glass):
             b.add_sphere_instance([sid])
     return b, b.commit(device)
+
+
+def refit_mesh_instance(builder: SceneBuilder, scene: SceneData, inst_index: int,
+                        new_positions: np.ndarray) -> SceneData:
+    """Per-frame BVH refit of an animated mesh instance (BASELINE config 4).
+
+    Replaces the instance's vertex positions in the builder's host mirror
+    (so refits compound across frames), refits its BLAS bounds bottom-up
+    with the topology kept, recomputes the baked triangle rows and the
+    instance's world box, rebuilds the small TLAS, and returns a new
+    SceneData on `scene`'s device. The input scene's tensors are not
+    written: the changed tables are fresh tensors, the others shared.
+
+    Reads `scene.blas_ifields` and `scene.tri_prim_idx` back to the host
+    (a synchronizing copy from the card), as the JAX function does. The
+    node sweep runs in the native scene core when it is built, else in
+    numpy (bvh.refit_bvh); both give the same bits."""
+    from ilgpu_raytracing_tpu_torch import native as native_mod
+
+    inst = builder.instances[inst_index]
+    assert inst.type == BLAS_TRI_MESH, "refit targets mesh instances"
+    new_positions = np.asarray(new_positions, dtype=np.float32)
+    assert new_positions.shape == (inst.vertex_count, 3)
+
+    v_slice = slice(inst.vertex_first, inst.vertex_first + inst.vertex_count)
+    builder.positions[v_slice] = new_positions
+
+    t_slice = slice(inst.prim_first, inst.prim_first + inst.prim_count)
+    tris = builder.tri_indices[t_slice]
+    v0 = builder.positions[tris[:, 0]]
+    v1 = builder.positions[tris[:, 1]]
+    v2 = builder.positions[tris[:, 2]]
+    pbmin, pbmax = bvh_mod.triangle_bounds(v0, v1, v2)
+
+    # the instance's node slice, localized: children are absolute node ids,
+    # leaf `first` indexes the global tri_prim_idx, whose global tri ids map
+    # back to this instance's prim rows
+    root, count = inst.blas_root, inst.blas_node_count
+    nif = scene.blas_ifields[root: root + count].cpu().numpy().copy()
+    inner = nif[:, bvh_mod.LEFT] >= 0
+    nif[inner, bvh_mod.LEFT] -= root
+    leaf_order_local = scene.tri_prim_idx.cpu().numpy() - inst.prim_first
+    refit = native_mod.refit_bvh(nif, leaf_order_local, pbmin, pbmax)
+    nb, nx = (bvh_mod.refit_bvh(nif, leaf_order_local, pbmin, pbmax)
+              if refit is None else refit)
+
+    inst.bmin, inst.bmax = transform_aabb(inst.o2w, pbmin.min(axis=0),
+                                          pbmax.max(axis=0))
+    # the TLAS is rebuilt on the builder's tlas_leaf_size, the bound that
+    # commit recorded as tlas_leaf_max, so the scene's metadata still holds
+    inst_bmin = np.stack([i.bmin for i in builder.instances])
+    inst_bmax = np.stack([i.bmax for i in builder.instances])
+    centroids = 0.5 * (inst_bmin + inst_bmax)
+    t_bmin, t_bmax, t_if, t_order = bvh_mod.build_skip_index_bvh(
+        inst_bmin, inst_bmax, centroids, builder.tlas_leaf_size
+    )
+
+    dev = scene.device
+
+    def put(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    def patched(full, rows, new):
+        out = full.clone()
+        out[rows] = put(new)
+        return out
+
+    return dataclasses.replace(
+        scene,
+        blas_bmin=patched(scene.blas_bmin, slice(root, root + count), nb),
+        blas_bmax=patched(scene.blas_bmax, slice(root, root + count), nx),
+        tri_v0=patched(scene.tri_v0, t_slice, v0),
+        tri_e1=patched(scene.tri_e1, t_slice, v1 - v0),
+        tri_e2=patched(scene.tri_e2, t_slice, v2 - v0),
+        inst_bmin=put(inst_bmin),
+        inst_bmax=put(inst_bmax),
+        tlas_bmin=put(t_bmin),
+        tlas_bmax=put(t_bmax),
+        tlas_ifields=put(t_if, torch.int32),
+        tlas_instance_indices=put(t_order, torch.int32),
+    )

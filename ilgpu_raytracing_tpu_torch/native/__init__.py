@@ -44,6 +44,10 @@ def _load():
         lib.sc_build_bvh.argtypes = [
             f32p, f32p, f32p, i32, i32, i32, f32p, f32p, i32p, i32p,
         ]
+        lib.sc_refit_bvh.restype = None
+        lib.sc_refit_bvh.argtypes = [i32p, i32p, f32p, f32p, i32, f32p, f32p]
+        lib.sc_triangle_bounds.restype = None
+        lib.sc_triangle_bounds.argtypes = [f32p, f32p, f32p, i32, f32p, f32p, f32p]
     _state["lib"] = lib
     return lib
 
@@ -73,3 +77,37 @@ def build_bvh(bmin, bmax, centroid, leaf_size: int, method: int = BUILD_MEDIAN):
     if count <= 0:
         return None
     return nb[:count].copy(), nx[:count].copy(), nif[:count].copy(), order
+
+
+def refit_bvh(node_ifields, leaf_order, prim_bmin, prim_bmax):
+    """Native bottom-up refit (models/bvh.refit_bvh). Returns (node_bmin,
+    node_bmax) or None when the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    node_ifields = np.ascontiguousarray(node_ifields, np.int32)
+    leaf_order = np.ascontiguousarray(leaf_order, np.int32)
+    prim_bmin = np.ascontiguousarray(prim_bmin, np.float32)
+    prim_bmax = np.ascontiguousarray(prim_bmax, np.float32)
+    n = node_ifields.shape[0]
+    nb = np.empty((n, 3), np.float32)
+    nx = np.empty((n, 3), np.float32)
+    lib.sc_refit_bvh(node_ifields, leaf_order, prim_bmin, prim_bmax, n, nb, nx)
+    return nb, nx
+
+
+def triangle_bounds(v0, v1, v2):
+    """Native triangle bounds and centroids in one pass. Returns (bmin,
+    bmax, centroid) or None when the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    v0 = np.ascontiguousarray(v0, np.float32)
+    v1 = np.ascontiguousarray(v1, np.float32)
+    v2 = np.ascontiguousarray(v2, np.float32)
+    t = v0.shape[0]
+    bmin = np.empty((t, 3), np.float32)
+    bmax = np.empty((t, 3), np.float32)
+    cen = np.empty((t, 3), np.float32)
+    lib.sc_triangle_bounds(v0, v1, v2, t, bmin, bmax, cen)
+    return bmin, bmax, cen

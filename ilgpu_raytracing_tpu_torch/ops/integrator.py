@@ -18,7 +18,11 @@ Without one the traces go to the plain tracer of ops/traverse.py directly.
 On a scene with alpha cutouts every trace peels around the kernel scene's
 closest-hit kernel (ops/alpha.py); the plain tracer tests the masks in its
 loop. Pixel batches above `chunk_pixels` run as equal chunks, trace lanes
-(spp x pixels) counted on the plain-tracer and alpha paths.
+(spp x pixels) counted on the plain-tracer and alpha paths. Two settings
+reshape the dispatches without changing what is traced:
+`spp_pixel_major` (a pixel's samples on adjacent lanes) and
+`deferred_shadows` (every visibility ray of the frame in one sorted
+any-hit dispatch after the bounce loop).
 """
 
 from __future__ import annotations
@@ -77,13 +81,6 @@ def _pick_n_chunks(n: int, target: int) -> int:
             return c
         c += 1
     return 1
-
-
-def _refuse_unported(cfg: RenderConfig) -> None:
-    for knob in ("deferred_shadows", "spp_pixel_major"):
-        if getattr(cfg, knob):
-            raise NotImplementedError(
-                f"{knob}: ROADMAP Queue 1 item 4, integrator settings that raise")
 
 
 def _kernels(kscene):
@@ -211,9 +208,24 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
                       frame, noise_key, sun_dir, cfg: RenderConfig,
                       width: int, height: int, wscene=None):
     """Path-trace the pixels `pixel_idx` with all spp samples vectorized
-    into one (spp*m,) lane batch (lane s*m + i carries sample s of pixel
-    i). Later samples overwrite earlier reservoir winners, as the
-    reference's sequential ping-pong merge does."""
+    into one (spp*m,) lane batch: lane s*m + i carries sample s of pixel i
+    (sample-major), or lane i*spp + s with `cfg.spp_pixel_major`, a pure
+    lane permutation (the same RNG stream, trace result and fold order for
+    every (pixel, sample), so the frame is bit-identical). Later samples
+    overwrite earlier reservoir winners, as the reference's sequential
+    ping-pong merge does.
+
+    With `cfg.deferred_shadows` on a kernel scene without alpha (`wscene`
+    given and `scene.has_alpha` off), every bounce's ReSTIR visibility ray
+    and the final bounce's sky-visibility ray are queued and traced as one
+    frame-wide sorted any-hit dispatch after the bounce loop; the radiance
+    then sums in queue order, equal to the inline frame up to float
+    summation order. The JAX package applies the queue only with a Pallas
+    scene (`pscene`), which it has on the TPU and not on the CPU; the
+    port's CPU Renderer carries the plain-version kernel scene, so on the
+    CPU the port applies the queue where JAX on the CPU would not: the
+    counterpart of JAX with a `pscene`. The sun-dedup trace stays outside
+    the queue."""
     dev = scene.device
     m = pixel_idx.shape[0]
     spp = max(1, cfg.spp)
@@ -234,8 +246,21 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
             and isinstance(wscene, stream_mod.StreamScene)):
         treelet_bounds = wscene.sortkey_bounds
 
+    # lane layout (config.spp_pixel_major): sample-major stacks whole
+    # sample tiles; pixel-major keeps a pixel's spp lanes adjacent
+    pixel_major = cfg.spp_pixel_major and spp > 1
+
     def tile(x):
+        if pixel_major:
+            return x.repeat_interleave(spp, dim=0)
         return x.repeat((spp,) + (1,) * (x.dim() - 1))
+
+    # deferred shadow queue (config.deferred_shadows): visibility rays never
+    # drive path continuation or reservoir writes, so they can all be traced
+    # in one sorted dispatch after the bounce loop
+    defer_shadows = (cfg.deferred_shadows and wscene is not None
+                     and not scene.has_alpha)
+    shadow_queue: list[dict] | None = [] if defer_shadows else None
 
     px, py = layout.xy_from_position(pixel_idx, width, height)
     pu = (px.to(torch.float32) + 0.5) / float(max(1, width))
@@ -315,7 +340,7 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
             cfg.local_candidates, cfg.delta_candidates,
             static_reuse=static_reuse,
             reference_weighting=cfg.restir_reference_weighting,
-            reps=spp,
+            reps=spp, reps_pixel_major=pixel_major,
         )
         shadow_o = _offset_origin(pos, nrm, sel["wi"], cfg.eps_n)
         contrib_w = torch.where(
@@ -337,14 +362,19 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
         q_act, q_scale = vis_rr(state, contrib_w, q_act, 0x53484457)
         if q_scale is not None:
             contrib_w = contrib_w * q_scale[..., None]
-        occluded = _shadow(
-            scene, wscene, shadow_o, sel["wi"], 1e29, active=q_act,
-            sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
-            treelet_bounds=treelet_bounds,
-        )
-        li = li + torch.where(
-            (q_act & (~occluded))[..., None], contrib_w, zeros3(contrib_w)
-        )
+        if shadow_queue is not None:
+            shadow_queue.append(dict(o=shadow_o, d=sel["wi"], contrib=contrib_w,
+                                     act=q_act))
+        else:
+            occluded = _shadow(
+                scene, wscene, shadow_o, sel["wi"], 1e29, active=q_act,
+                sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+                treelet_bounds=treelet_bounds,
+            )
+            li = li + torch.where(
+                (q_act & (~occluded))[..., None], contrib_w, zeros3(contrib_w)
+            )
+        # queued or traced, each lane counts once, here
         eff = eff + torch.sum(q_act.to(torch.float32))
         write_mask = is_lambert & (~wrote)
         res_cur = _merge_reservoirs(res_cur, res_out, write_mask)
@@ -395,14 +425,21 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
             if sky_scale is not None:
                 sky_w = sky_w * sky_scale[..., None]
                 eff = eff - torch.sum((trace_active & (~sky_act)).to(torch.float32))
-            occluded = _shadow(
-                scene, wscene, ray_o, new_dir, 1e29, active=sky_act,
-                sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
-                treelet_bounds=treelet_bounds,
-            )
-            missed = sky_act & (~occluded)
-            li = li + torch.where(missed[..., None], sky_w, zeros3(sky_w))
-            alive = sky_act & occluded
+            if shadow_queue is not None:
+                # sky radiance lands where the queued trace reports not
+                # occluded; `alive` is unused after the last bounce
+                shadow_queue.append(dict(o=ray_o, d=new_dir, contrib=sky_w,
+                                         act=sky_act))
+                alive = torch.zeros_like(trace_active)
+            else:
+                occluded = _shadow(
+                    scene, wscene, ray_o, new_dir, 1e29, active=sky_act,
+                    sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+                    treelet_bounds=treelet_bounds,
+                )
+                missed = sky_act & (~occluded)
+                li = li + torch.where(missed[..., None], sky_w, zeros3(sky_w))
+                alive = sky_act & occluded
         else:
             hit = _trace(
                 scene, wscene, ray_o, new_dir, active=trace_active,
@@ -446,7 +483,10 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
         sun_occ0 = None
         eff0 = torch.zeros((), dtype=torch.float32, device=dev)
 
-    sample_ids = torch.arange(spp, dtype=torch.int64, device=dev).repeat_interleave(m)
+    # the lane carrying (pixel i, sample s) gets the same stream under
+    # either layout
+    sample_ids = torch.arange(spp, dtype=torch.int64, device=dev)
+    sample_ids = sample_ids.repeat(m) if pixel_major else sample_ids.repeat_interleave(m)
     state = rng_mod.seed_from_index(
         tile(canonical_idx), width, frame, sample_ids, cfg.rng_salt, noise_key
     )
@@ -467,9 +507,28 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
         )
     li, wrote, res_vec, eff = carry[6], carry[10], carry[11], carry[12]
 
+    if shadow_queue:
+        # one frame-wide sorted any-hit dispatch over every queued segment
+        # (max_depth ReSTIR batches and the final sky batch), then each
+        # segment's radiance in queue order
+        n_seg = len(shadow_queue)
+        q_act = torch.cat([q["act"] for q in shadow_queue])
+        occ = _shadow(
+            scene, wscene, torch.cat([q["o"] for q in shadow_queue]),
+            torch.cat([q["d"] for q in shadow_queue]), 1e29,
+            active=q_act, sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+            treelet_bounds=treelet_bounds,
+        )
+        vis = (q_act & (~occ)).reshape(n_seg, n)
+        for b, q in enumerate(shadow_queue):
+            li = li + torch.where(vis[b][..., None], q["contrib"], zeros3(q["contrib"]))
+
     # fold per pixel in sample order: scrubbed radiance sum; reservoirs keep
-    # the LAST sample that wrote
+    # the LAST sample that wrote (the same numbers in the same order under
+    # either lane layout)
     def sample_slice(x, s):
+        if pixel_major:
+            return x.reshape(m, spp, *x.shape[1:])[:, s]
         return x.reshape(spp, m, *x.shape[1:])[s]
 
     l_sum = torch.zeros((m, 3), dtype=torch.float32, device=dev)
@@ -499,7 +558,6 @@ def path_trace(scene: SceneData, gb: GBuffer, camera, prev_camera, res_prev,
     the other. Each chunk's ReSTIR reuse still gathers from the full-image
     G-buffer and `res_prev`, so the chunked frame equals the unchunked one
     bit for bit."""
-    _refuse_unported(cfg)
     n = width * height
     target = cfg.chunk_pixels
     if target and (wscene is None or scene.has_alpha):

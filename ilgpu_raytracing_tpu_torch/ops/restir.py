@@ -54,6 +54,13 @@ class Reservoirs:
     def map(self, fn) -> "Reservoirs":
         return Reservoirs(**{k: fn(v) for k, v in vars(self).items()})
 
+    def gather(self, idx: torch.Tensor) -> "Reservoirs":
+        """Rows at `idx`, negative ids reading row 0 and ids past the end
+        the last row (jnp.take's clip mode)."""
+        n = self.m.shape[0]
+        safe = torch.clamp(idx.long(), 0, n - 1)
+        return self.map(lambda a: a[safe])
+
     def replace(self, **kw) -> "Reservoirs":
         return dataclasses.replace(self, **kw)
 
@@ -264,12 +271,10 @@ def restir_direct(
     quantities and the caller traces its single visibility ray. `reps`
     declares the batch as `reps` stacked sample views of the same pixels
     (pixel_idx expanded to match), so spatial rows are fetched once per
-    pixel and tiled. `frame` is the host frame index."""
-    if reps_pixel_major:
-        raise NotImplementedError(
-            "spp_pixel_major lane layout: ROADMAP Queue 1 item 4, integrator "
-            "settings that raise"
-        )
+    pixel and expanded: stacked sample tiles ([tile0; tile1; ...]) by
+    default, a pixel's samples adjacent with `reps_pixel_major` (the
+    integrator's lane layout, config.spp_pixel_major). `frame` is the host
+    frame index."""
     total = local_candidates + delta_candidates
     mix_local = float(local_candidates) / float(total)
     mix_delta = float(delta_candidates) / float(total)
@@ -313,12 +318,20 @@ def restir_direct(
         res_packed = _pack_reservoirs(res_prev)
         gb_packed = _pack_gbuffer(gb)
         m_px = pos.shape[0] // max(1, reps)
-        own_px = pixel_idx[:m_px].long()
-        own_sl = torch.cat(
+        if reps > 1 and reps_pixel_major:
+            px_rows = pixel_idx[::reps]
+
+            def expand(x):
+                return x.repeat_interleave(reps, dim=0)
+        else:
+            px_rows = pixel_idx[:m_px]
+
+            def expand(x):
+                return x.repeat(reps, 1) if reps > 1 else x
+        own_px = px_rows.long()
+        own_sl = expand(torch.cat(
             [gb.pos[own_px], gb.obj_id[own_px].to(torch.float32)[:, None]], dim=1
-        )
-        if reps > 1:
-            own_sl = own_sl.repeat(reps, 1)
+        ))
         own_obj = own_sl[:, 3].to(torch.int32)
         own_z = vec.length(own_sl[:, 0:3] - cam_origin)
 
@@ -335,10 +348,8 @@ def restir_direct(
         # canonical pixel id, so noise is layout-invariant)
         fetch = _spatial_row_fetcher(res_packed, gb_packed, width, height, frame)
         for slot in range(len(_NEIGHBOR_BASE)):
-            row12, gbr7 = fetch(slot, pixel_idx[:m_px])
-            if reps > 1:
-                row12 = row12.repeat(reps, 1)
-                gbr7 = gbr7.repeat(reps, 1)
+            row12, gbr7 = fetch(slot, px_rows)
+            row12, gbr7 = expand(row12), expand(gbr7)
             state, res, n_b, vld = _import_rows(
                 res, state, row12, gbr7, active & enable_spatial, own_obj,
                 own_z, cam_origin, n, albedo, mix_local, mix_delta,

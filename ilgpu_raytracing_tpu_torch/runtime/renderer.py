@@ -17,7 +17,8 @@ its own. A caller may set `r.wscene = binary.prepare_binary(r.scene)`
 runs the binary skip-index kernel K6. A scene with alpha cutouts (an OBJ
 with `map_d`, models/sponza_like.py) routes by size like any other, and
 every trace of its frame peels around the closest-hit kernel of its route,
-K1, K4 or K6 (ops/alpha.py): the any-hit kernels do not run on it.
+K1, K4 or K6 (ops/alpha.py): the any-hit kernels do not run on it. Every
+RenderConfig setting renders; only `mesh=` (multi-device) is refused.
 """
 
 from __future__ import annotations
@@ -163,7 +164,10 @@ class Renderer:
 
     def set_scene(self, scene: SceneData) -> None:
         """Swap the committed scene (moved to the renderer's device) and
-        re-prepare the kernel tables."""
+        re-prepare the kernel tables. This is also the per-frame entry of
+        a refit scene (models/scene.refit_mesh_instance, BASELINE config
+        4): the tables are read back, rebuilt on the host and uploaded on
+        every call, as the JAX package re-prepares its Pallas scene."""
         self.scene = scene.to(self.device)
         self._prepare_wscene(self.scene)
 

@@ -128,6 +128,13 @@ def next_float(state: torch.Tensor):
     return state, _unit_float(v)
 
 
+def next_float2(state: torch.Tensor):
+    """Two uniforms; returns (new_state, u1, u2)."""
+    state, u1 = next_float(state)
+    state, u2 = next_float(state)
+    return state, u1, u2
+
+
 def side_float(state: torch.Tensor, salt) -> torch.Tensor:
     """Uniform [0, 1) from the CURRENT state without advancing it: a
     decorrelated side-stream (see the reference module's docstring)."""

@@ -36,6 +36,10 @@ def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return v * inv[..., None]
 
 
+def vec3(x, y, z, dtype=torch.float32, device="cuda") -> torch.Tensor:
+    return torch.tensor([x, y, z], dtype=dtype, device=device)
+
+
 def saturate(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(v, 0.0, 1.0)
 

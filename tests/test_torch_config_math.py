@@ -18,6 +18,7 @@ from ilgpu_raytracing_tpu.ops import layout as jlayout
 from ilgpu_raytracing_tpu.ops import sampling as jsamp
 from ilgpu_raytracing_tpu.ops import sky as jsky
 from ilgpu_raytracing_tpu.ops import tonemap as jtone
+from ilgpu_raytracing_tpu.utils import image as jimage
 from ilgpu_raytracing_tpu.utils import packing as jpack
 from ilgpu_raytracing_tpu.utils import rng as jrng
 from ilgpu_raytracing_tpu.utils import vec as jvec
@@ -27,6 +28,7 @@ from ilgpu_raytracing_tpu_torch.ops import layout as tlayout
 from ilgpu_raytracing_tpu_torch.ops import sampling as tsamp
 from ilgpu_raytracing_tpu_torch.ops import sky as tsky
 from ilgpu_raytracing_tpu_torch.ops import tonemap as ttone
+from ilgpu_raytracing_tpu_torch.utils import image as timage
 from ilgpu_raytracing_tpu_torch.utils import packing as tpack
 from ilgpu_raytracing_tpu_torch.utils import rng as trng
 from ilgpu_raytracing_tpu_torch.utils import vec as tvec
@@ -76,7 +78,8 @@ def test_render_config_fields_and_defaults_match():
     assert tc.internal_resolution(1920, 1080) == (1280, 704)
 
 
-@pytest.mark.parametrize("fn", ["hash32", "pcg_permute", "next_uint", "side_float"])
+@pytest.mark.parametrize("fn", ["hash32", "pcg_permute", "next_uint", "side_float",
+                                "next_float2"])
 def test_rng_primitives_bit_exact(fn):
     x = _u32(20000)
     x[:4] = [0, 1, 0xFFFFFFFF, 0x80000000]
@@ -87,6 +90,12 @@ def test_rng_primitives_bit_exact(fn):
         _eq_u32(js, ts)
         jf, tf = jrng.next_float(jx)[1], trng.next_float(tx)[1]
         np.testing.assert_array_equal(_j(jf), tf.numpy())
+    elif fn == "next_float2":
+        for j, t in zip(jrng.next_float2(jx), trng.next_float2(tx)):
+            if j.dtype == jnp.uint32:
+                _eq_u32(j, t)
+            else:
+                np.testing.assert_array_equal(_j(j), t.numpy())
     elif fn == "side_float":
         np.testing.assert_array_equal(
             _j(jrng.side_float(jx, 0x53484457)), trng.side_float(tx, 0x53484457).numpy()
@@ -138,6 +147,27 @@ def test_layout_exact(wh):
     np.testing.assert_array_equal(
         _j(jlayout.from_image(jnp.asarray(img))), tlayout.from_image(_t(img)).numpy()
     )
+
+
+@pytest.mark.parametrize("srgb", [False, True])
+def test_image_helpers_exact(srgb, tmp_path):
+    """linear_to_uint8 (with the edges 0, 1 and out of range), the packed
+    PNG writer, and vec3, against the JAX package's."""
+    c = RNG.uniform(-0.2, 1.2, size=(37, 53, 3)).astype(np.float32)
+    c[0, :3] = [[0.0, 1.0, 0.5], [-1.0, 2.0, 0.0031308], [1e-8, 0.999, 0.04045]]
+    np.testing.assert_array_equal(timage.linear_to_uint8(torch.as_tensor(c), srgb),
+                                  jimage.linear_to_uint8(jnp.asarray(c), srgb))
+    packed = _u32(37 * 53) | np.uint32(0xFF000000)
+    from PIL import Image
+
+    jimage.save_packed_png(str(tmp_path / "j.png"), jnp.asarray(packed), 53, 37)
+    timage.save_packed_png(str(tmp_path / "t.png"),
+                           torch.as_tensor(packed.astype(np.int64)), 53, 37)
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "t.png")),
+                                  np.asarray(Image.open(tmp_path / "j.png")))
+    np.testing.assert_array_equal(tvec.vec3(0.5, -1.0, 3.25, device="cpu").numpy(),
+                                  _j(jvec.vec3(0.5, -1.0, 3.25)))
+    assert tvec.vec3(1, 2, 3, torch.int32, device="cpu").dtype == torch.int32
 
 
 def test_packing_exact():

@@ -232,22 +232,18 @@ def test_renderer_on_cpu_and_refusals(scenes, tmp_path):
                                ts, tcam(OUT, OUT), device="cpu")
     assert plain.wscene is None
     plain.render()
+    # the two integrator settings render (ported; no longer refused)
     for knob in (dict(deferred_shadows=True), dict(spp_pixel_major=True)):
-        rr = trenderer.Renderer(OUT, OUT, RenderConfig(**knob), ts, tcam(OUT, OUT),
-                                device="cpu")
-        with pytest.raises(NotImplementedError):
-            rr.render()
+        rr = trenderer.Renderer(OUT, OUT, RenderConfig(spp=2, max_depth=2, **knob), ts,
+                                tcam(OUT, OUT), device="cpu")
+        out = rr.render()
+        assert out.shape == (OUT * OUT,) and len(np.unique(out.numpy())) > 100
+        assert bool(torch.isfinite(rr._last_aux["color"]).all())
     # alpha scenes render (the peel around the plain K1), and chunking runs
     alpha = trenderer.Renderer(OUT, OUT, RenderConfig(spp=1, max_depth=2),
                                dataclasses.replace(ts, has_alpha=True), tcam(OUT, OUT),
                                device="cpu")
     assert alpha.render().shape == (OUT * OUT,)
-    assert tint._refuse_unported(RenderConfig(chunk_pixels=1024)) is None
-    # the two knobs still refused name the open ROADMAP item that ports them
-    for knob in ("deferred_shadows", "spp_pixel_major"):
-        with pytest.raises(NotImplementedError,
-                           match=knob + r": ROADMAP Queue 1 item 4, integrator settings "
-                                        r"that raise"):
-            tint._refuse_unported(RenderConfig(**{knob: True}))
-    with pytest.raises(NotImplementedError):
+    # multi-device rendering stays refused, naming its ROADMAP item
+    with pytest.raises(NotImplementedError, match=r"parallel/sharding\.py"):
         trenderer.Renderer(OUT, OUT, mesh=object(), device="cpu")

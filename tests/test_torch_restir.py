@@ -62,6 +62,9 @@ CASES = {
     "reuse": dict(static_reuse=True, reference_weighting=False),
     "reference_weighting": dict(static_reuse=True, reference_weighting=True),
     "candidates_only": dict(static_reuse=False, reference_weighting=False),
+    # lanes i*SPP + s: a pixel's samples adjacent (config.spp_pixel_major)
+    "pixel_major": dict(static_reuse=True, reference_weighting=False,
+                        reps_pixel_major=True),
 }
 
 
@@ -79,6 +82,9 @@ def test_restir_direct_matches_reference(case):
                   sky_bottom=(1.0, 1.0, 1.0), local_candidates=8,
                   delta_candidates=1, reps=SPP, **kw)
     pixel_idx = np.tile(np.arange(n, dtype=np.int32), SPP)
+    if kw.get("reps_pixel_major"):
+        lanes = {k: np.repeat(v, SPP, axis=0) for k, v in gbn.items()}
+        pixel_idx = np.repeat(np.arange(n, dtype=np.int32), SPP)
 
     jgb = jint.GBuffer(**{k: jnp.asarray(v) for k, v in gbn.items()})
     jst, jres, jsel = jrestir.restir_direct(
@@ -111,6 +117,20 @@ def test_restir_direct_matches_reference(case):
         np.testing.assert_allclose(np.asarray(jsel[f]), tsel[f].numpy(),
                                    rtol=1e-5, atol=1e-6, err_msg=f)
     assert int(tres.m.max()) > 9 if kw["static_reuse"] else int(tres.m.max()) == 9
+
+
+def test_reservoir_gather_matches_reference():
+    _gbn, prev, *_ = _inputs(29)
+    n = W * H
+    idx = np.random.default_rng(3).integers(-5, n + 5, size=3000).astype(np.int32)
+    idx[:4] = [-1, 0, n - 1, n]
+    jg = jrestir.Reservoirs(**{k: jnp.asarray(v) for k, v in prev.items()}).gather(
+        jnp.asarray(idx))
+    tg = trestir.Reservoirs(**{k: torch.as_tensor(v) for k, v in prev.items()}).gather(
+        torch.as_tensor(idx))
+    for k in prev:
+        np.testing.assert_array_equal(np.asarray(getattr(jg, k)), getattr(tg, k).numpy(),
+                                      err_msg=k)
 
 
 def test_reproject_and_spatial_rows_exact():

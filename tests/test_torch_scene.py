@@ -7,12 +7,14 @@ import pytest
 import torch
 
 from ilgpu_raytracing_tpu.models import camera as jcamera
+from ilgpu_raytracing_tpu.models import canyon as jcanyon
 from ilgpu_raytracing_tpu.models import cornell as jcornell
 from ilgpu_raytracing_tpu.models import scene as jscene
 from ilgpu_raytracing_tpu.ops.pallas import traverse_kernel as jtk
 from ilgpu_raytracing_tpu.ops.pallas import wide_kernel as jwk
 from ilgpu_raytracing_tpu_torch import native as tnative
 from ilgpu_raytracing_tpu_torch.models import camera as tcamera
+from ilgpu_raytracing_tpu_torch.models import canyon as tcanyon
 from ilgpu_raytracing_tpu_torch.models import cornell as tcornell
 from ilgpu_raytracing_tpu_torch.models import scene as tscene
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide as twide
@@ -54,6 +56,7 @@ CASES = {
     "default_multi": (
         lambda m, **kw: m.build_default_scene(single_instance=False, **kw), False),
     "transformed": (None, False),
+    "canyon": (lambda m, **kw: m.build_canyon_scene(**kw), False),
 }
 
 
@@ -64,17 +67,19 @@ def _build(case):
     if case == "transformed":
         return (build_transformed_scene(jscene, jcornell)[1],
                 build_transformed_scene(tscene, tcornell, device="cpu")[1])
-    jmod = jcornell if case.startswith("cornell") else jscene
-    tmod = tcornell if case.startswith("cornell") else tscene
+    jmod, tmod = ((jcornell, tcornell) if case.startswith("cornell") else
+                  (jcanyon, tcanyon) if case == "canyon" else (jscene, tscene))
     return make(jmod)[1], make(tmod, device="cpu")[1]
 
 
 @pytest.mark.parametrize("op", ["create", "look_at", "translate", "set_fov",
-                                "rotate_yaw_pitch", "fly"])
+                                "rotate_yaw_pitch", "fly", "canyon_camera"])
 def test_camera_matches_reference(op):
     jc = jcamera.Camera.create(320, 180, 55.0)
     tc = tcamera.Camera.create(320, 180, 55.0)
-    if op == "look_at":
+    if op == "canyon_camera":
+        jc, tc = jcanyon.canyon_camera(320, 180), tcanyon.canyon_camera(320, 180)
+    elif op == "look_at":
         args = ((0.3, 1.2, 4.0), (0.1, 0.0, -0.5), (0, 1, 0), 40.0, 1.7)
         jc, tc = jcamera.Camera.look_at(*args), tcamera.Camera.look_at(*args)
     elif op == "translate":

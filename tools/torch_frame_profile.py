@@ -8,13 +8,17 @@ examples/large_mesh.py (`--scene terrain`: leaf 64, SAH; spp=2,
 max_depth=8), or the Sponza-like courtyard (`--scene courtyard`: alpha
 cutouts, every trace peeled around K1, 2 chunks; `courtyard-opaque`: the
 same tables with has_alpha off; median BVH, leaf 8; spp=2, max_depth=3;
-sun (0.3, 0.6)), all 1920x1080 out: two warm-up frames, then FRAMES frames
-under torch.profiler. Prints the wall time per frame, the device-busy share
+sun (0.3, 0.6)), or BASELINE config 4 (`--scene config4`: the Cornell
+bench scene with examples/animate.py's loop, every frame a refit of the
+bobbing sphere, Renderer.set_scene and an orbiting camera, progressive
+accumulation; the refit and set_scene are inside the profiled wall), all
+1920x1080 out: two warm-up frames, then FRAMES frames under
+torch.profiler. Prints the wall time per frame, the device-busy share
 (sum of GPU kernel and memcpy time over wall time), the share of the
 hand-written kernels, and the top GPU kernels by total time.
 
 Run from the repository root on a machine with one CUDA card:
-    python3 tools/torch_frame_profile.py [--scene cornell|terrain|courtyard|courtyard-opaque]
+    python3 tools/torch_frame_profile.py [--scene cornell|terrain|courtyard|courtyard-opaque|config4]
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 FRAMES = 3
@@ -35,8 +40,8 @@ OWN_KERNELS = ("trace_kernel", "anyhit_kernel", "hist_kernel", "scan_kernel", "r
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("cornell", "terrain", "courtyard", "courtyard-opaque"),
-                    default="cornell")
+    ap.add_argument("--scene", choices=("cornell", "terrain", "courtyard", "courtyard-opaque",
+                                        "config4"), default="cornell")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_profile: no CUDA device", file=sys.stderr)
@@ -46,6 +51,9 @@ def main() -> int:
 
     from ilgpu_raytracing_tpu_torch.config import RenderConfig
     from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    def step(frame):
+        """What a frame does before render() (config 4: refit and orbit)."""
 
     if args.scene == "terrain":
         from ilgpu_raytracing_tpu_torch.models.terrain import (
@@ -72,23 +80,41 @@ def main() -> int:
                      sponza_camera(1920, 1080), device="cuda")
         r.sun_azimuth, r.sun_elevation = 0.3, 0.6
     else:
+        from ilgpu_raytracing_tpu_torch.models.camera import Camera
         from ilgpu_raytracing_tpu_torch.models.cornell import (
             build_cornell_scene,
             cornell_camera,
         )
+        from ilgpu_raytracing_tpu_torch.models.scene import refit_mesh_instance
 
-        _, scene = build_cornell_scene(tess=24, sphere_tess=(48, 72),
-                                       blas_leaf_size=8, bvh_method="sah",
-                                       device="cuda")
-        r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3), scene,
-                     cornell_camera(1920, 1080), device="cuda")
+        builder, scene = build_cornell_scene(tess=24, sphere_tess=(48, 72),
+                                             blas_leaf_size=8, bvh_method="sah",
+                                             device="cuda")
+        r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3,
+                                              progressive_accumulation=args.scene == "config4"),
+                     scene, cornell_camera(1920, 1080), device="cuda")
         r.sun_azimuth, r.sun_elevation = 0.3, 0.6
-    for _ in range(2):
+        if args.scene == "config4":
+            inst = builder.instances[0]
+            verts = slice(inst.vertex_first, inst.vertex_first + inst.vertex_count)
+            base = builder.positions.copy()
+
+            def step(frame):
+                phase = 2.0 * np.pi * frame / (2 + FRAMES)
+                moved = base.copy()
+                moved[-49 * 72:, 1] += np.float32(0.15 * np.sin(phase))  # the sphere
+                r.set_scene(refit_mesh_instance(builder, r.scene, 0, moved[verts]))
+                r.set_camera(Camera.look_at(
+                    (3.2 * np.sin(phase * 0.25), 0.2, 3.2 * np.cos(phase * 0.25)),
+                    (0, 0, 0), (0, 1, 0), 40.0, 1920 / 1080))
+    for f in range(2):
+        step(f)
         r.render().cpu()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(FRAMES):
+        for f in range(2, 2 + FRAMES):
+            step(f)
             r.render().cpu()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
