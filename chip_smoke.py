@@ -30,7 +30,10 @@ PyTorch version on the card:
   `runtime/controller.py`) at 1920x1080 on the default 6-sphere scene;
 - the bench frame with each integrator setting, `deferred_shadows` (one
   K2 dispatch over every visibility ray of the frame) and
-  `spp_pixel_major`.
+  `spp_pixel_major`;
+- the bench frame through `Renderer(mesh=...)` (parallel/sharding.py):
+  on `make_mesh()` and on a 4-block mesh of cuda:0, K1/K2/K3 once per
+  block, and K1/K2 and K4/K5 through `with_mesh`'s ray split.
 
 Phases:
   1. device: the card's name and power limit;
@@ -54,6 +57,20 @@ Phases:
      with the plain versions on the CPU, held to the golden-image bar;
   6. the Cornell main path: one warm-up and 6 timed 1080p frames, each
      copied to the host, with every kernel's launch count checked;
+  6a. the mesh: K1/K2 through `wide.with_mesh` on 65,537 bench bounce
+     lanes (4 blocks, 3 pad lanes) equal to the unsharded calls on every
+     lane; then the bench frame through `Renderer(mesh=make_mesh())` (one
+     card: a mesh of size 1) and `Renderer(mesh=make_mesh(devices=[cuda:0]
+     * 4))`, one warm-up and 2 frames each in turns with the
+     single-device Renderer of the same seed: packed frame and aux colour
+     bit-equal every frame, launches K1 3n, K2 5n, K3 6n, ms/frame, the
+     bytes the gathers copied and moved;
+  6b. parity, BASELINE config 1 (examples/parity_check.py's comparison):
+     the default sphere scene at 512x512, spp 1, max_depth 1, reuse off,
+     16 noise seeds, the kernels on the card against the plain versions on
+     the CPU: the robust RMSE of the per-pixel means within 1.5x the
+     Monte-Carlo floor, and the means held per pixel to the 64x64
+     card-vs-CPU bar (the seeds are shared);
   7. K6 vs its plain version on 65,536-ray subsets of the bench scene's
      primary rays and sorted bounce lanes (hit masks and t, prim, inst,
      bu, bv equal on every ray, any-hit equal at t_max 5 and 1e29, the
@@ -106,7 +123,8 @@ Phases:
      SIMD-efficiency count; ptxas's report of csrc/stream_trace.cu; the
      depth of the terrain's binary BVH against K6's stack bound; K4
      called with a stack cap of 1 on the terrain's bounce lanes must fail
-     the walk's device-side assert (in a child process);
+     the walk's device-side assert (in a child process); then K4/K5
+     through `stream.with_mesh` on 65,537 of those lanes as in 6a;
  16. K8: `trace_closest_treelet_stream_packed` on the terrain's 1,802,240
      treelet-sorted bounce lanes equal to K4 (t and pp) on every lane; one
      K8 round equal to its plain version on the first 65,536 lanes; timed;
@@ -164,6 +182,10 @@ CONFIG4_FRAMES = 4  # refit frames timed after one warm-up
 SETTINGS_FRAMES = 3  # frames of each integrator-setting arm after one warm-up
 T_REL_TOL = 1e-3
 SUBSET = 65_536  # rays of each terrain population held to the plain walk
+RAY_SPLIT = 65_537  # lanes of with_mesh's ray split: not divisible by 4 (pad lanes)
+MESH_FRAMES = 2  # timed mesh frames after one warm-up, in turns with one device
+PARITY_SIZE = 512  # BASELINE config 1 at full size
+PARITY_SEEDS = 16
 K3_LANES = 1_802_240  # 2 x 901,120: the frame's sorted bounce batches
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W).
@@ -624,6 +646,177 @@ def phase_main_path(dev, bench):
     r.sun_azimuth, r.sun_elevation = 0.3, 0.6
     return _drive("Cornell main path", r, FRAMES,
                   _want(wide_closest=3, wide_shadow=5, sortpos=6))
+
+
+def _ray_split(label, mod, ks, o, d, act, meshes) -> dict:
+    """`mod.with_mesh(ks, mesh)` (wide: K1/K2, stream: K4/K5) on the first
+    RAY_SPLIT lanes against the unsharded calls, t, pp and occ equal on
+    every lane; returns the split calls' launch counts."""
+    if mod.__name__.endswith("wide"):
+        closest, shadow = mod.trace_closest_wide_packed, mod.shadow_occlusion_wide
+    else:
+        closest, shadow = mod.trace_closest_stream_packed, mod.shadow_occlusion_stream
+    o, d, act = (x[:RAY_SPLIT].contiguous() for x in (o, d, act))
+    t_ref, pp_ref = closest(ks, o, d, active=act)
+    occ_ref = shadow(ks, o, d, 1e29, active=act)
+    total = {}
+    for mesh_label, mesh in meshes:
+        km = mod.with_mesh(ks, mesh)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t, pp = closest(km, o, d, active=act)
+        occ = shadow(km, o, d, 1e29, active=act)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        n_bad = int((t != t_ref).sum() + (pp != pp_ref).sum() + (occ != occ_ref).sum())
+        check(n_bad == 0, f"{label} split over {mesh_label}: {n_bad} values differ")
+        log(f"{label} with_mesh over {mesh_label} ({mesh.size} blocks, "
+            f"{-RAY_SPLIT % mesh.size} pad lanes) on {RAY_SPLIT} lanes "
+            f"({int(act.sum())} live): t, pp and occ equal to the unsharded calls on "
+            f"every lane; launches {({k: v for k, v in counts.items() if v})}")
+    return total
+
+
+def _meshes(dev):
+    from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
+
+    return (("make_mesh()", shrd.make_mesh()),
+            (f"{dev} x 4", shrd.make_mesh(devices=[dev] * 4)))
+
+
+def phase_mesh(dev, bench, meshes=None):
+    """The bench frame through Renderer(mesh=...) on `meshes` (default
+    make_mesh(), every card of the machine, and a simulated 4-block mesh
+    of cuda:0), in turns with the single-device Renderer of the same seed:
+    packed frame and low-res colour bit-equal every frame, launches n times
+    the single-device ones, ms/frame, the gathers' bytes. Before it K1/K2
+    through wide.with_mesh on bench bounce lanes."""
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.models.cornell import cornell_camera
+    from ilgpu_raytracing_tpu_torch.ops.cuda import wide
+    from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    meshes = meshes or _meshes(dev)
+    total = _ray_split("K1/K2 bench bounce lanes", wide, bench["ws"], bench["bo"],
+                       bench["bd"], bench["act"], meshes)
+    arms = (("single device", None),) + meshes
+    rs = []
+    for _, mesh in arms:
+        r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3), bench["scene"],
+                     cornell_camera(1920, 1080), mesh=mesh, device=dev)
+        r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+        rs.append(r)
+    check(len({(r.in_w, r.in_h) for r in rs}) == 1, "mesh internal resolution differs")
+    in_n = rs[0].in_w * rs[0].in_h
+    frame_ms = {label: [] for label, _ in arms}
+    gathers = {}
+    for f in range(1 + MESH_FRAMES):
+        ref = None
+        for (label, mesh), r in zip(arms, rs):
+            n = 1 if mesh is None else mesh.size
+            torch.cuda.synchronize()
+            _reset_counts()
+            shrd.GATHER_BYTES.update(copied=0, moved=0)
+            t0 = time.monotonic()
+            packed = r.render().cpu()
+            torch.cuda.synchronize()
+            ms = (time.monotonic() - t0) * 1e3
+            counts = _read_counts()
+            check(counts == _want(wide_closest=3 * n, wide_shadow=5 * n, sortpos=6 * n),
+                  f"mesh {label} frame {f} launch counts {counts}")
+            color = r._last_aux["color"]
+            if ref is None:
+                ref = (packed, color)
+            else:
+                dc = (color - ref[1]).abs()
+                check(torch.equal(packed, ref[0]) and torch.equal(color, ref[1]),
+                      f"mesh {label} frame {f} differs from the single-device frame: "
+                      f"{int((packed != ref[0]).sum())} packed pixels, "
+                      f"{int((dc > 0).any(dim=1).sum())} colour pixels (max abs "
+                      f"{float(dc.max()):.3e})")
+            gathers[label] = dict(shrd.GATHER_BYTES)
+            if f:
+                frame_ms[label].append(ms)
+                total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    log(f"mesh frames: packed frame and aux color bit-equal to the single-device "
+        f"Renderer on all {1 + MESH_FRAMES} frames of each mesh; launches per frame "
+        f"K1 3n, K2 5n, K3 6n")
+    log(f"mesh frame ms in turns ({smi_line()}), {MESH_FRAMES} frames after a warm-up: "
+        + "; ".join(f"{label} {[round(x, 3) for x in v]} (mean {np.mean(v):.3f})"
+                    for label, v in frame_ms.items()))
+    for label, mesh in meshes:
+        per_device = (mesh.size - 1) / mesh.size * 109 * in_n
+        log(f"mesh {label} gathers a frame: {gathers[label]['copied']} B copied, "
+            f"{gathers[label]['moved']} B moved between devices; a mesh of "
+            f"{mesh.size} distinct devices would move {per_device:.0f} B to each "
+            f"((n-1)/n x 109 B/px x {in_n} px: G-buffer 49, reservoirs 48, packed "
+            f"low-res + object ids 12)")
+    return total
+
+
+def phase_config1_parity(dev):
+    """BASELINE config 1 (examples/parity_check.py): the default sphere
+    scene at PARITY_SIZE^2, spp 1, max_depth 1, reuse off, over
+    PARITY_SEEDS noise seeds, the kernels on the card against the plain
+    versions on the CPU: the RMSE of the per-pixel means over the 95% of
+    pixels away from discrete-decision boundaries within 1.5x the
+    Monte-Carlo floor (parity_check.py:94-112). Both sides draw the same
+    seeds, so the per-pixel means are also held to the 64x64
+    card-vs-CPU bar: mean |diff| < 0.02 and under 1% of pixels off by
+    more than 0.1."""
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.models.camera import Camera
+    from ilgpu_raytracing_tpu_torch.models.scene import build_default_scene
+    from ilgpu_raytracing_tpu_torch.ops import integrator, sky
+    from ilgpu_raytracing_tpu_torch.ops.cuda import wide
+    from ilgpu_raytracing_tpu_torch.ops.restir import Reservoirs
+
+    size = PARITY_SIZE
+    cfg = RenderConfig(spp=1, max_depth=1, rng_lock_noise=1,
+                       enable_temporal_reuse=False, enable_spatial_reuse=False)
+    sun = sky.sun_direction(cfg.sun_azimuth, cfg.sun_elevation)
+    cam = Camera.create(size, size, 60.0)
+    n = size * size
+
+    def mean_var(device):
+        t0 = time.monotonic()
+        _, scene = build_default_scene(device=device)
+        ks = wide.prepare_scene(scene)
+        acc = np.zeros((n, 3), np.float64)
+        sq = np.zeros((n, 3), np.float64)
+        with torch.inference_mode():
+            gb = integrator.primary_visibility(scene, cam, size, size, cfg.chunk_pixels, ks)
+            for s in range(PARITY_SEEDS):
+                c = integrator.path_trace(
+                    scene, gb, cam, cam, Reservoirs.empty(n, device),
+                    Reservoirs.empty(n, device), 0, (s * 2654435761 & 0xFFFFFFFF) | 1,
+                    sun, cfg, size, size, ks)[0].double().cpu().numpy()
+                acc += c
+                sq += c * c
+        mean = acc / PARITY_SEEDS
+        return mean, np.maximum(sq / PARITY_SEEDS - mean ** 2, 0.0), time.monotonic() - t0
+
+    mean_a, var_a, s_cpu = mean_var(torch.device("cpu"))
+    mean_b, var_b, s_card = mean_var(dev)
+    check(np.isfinite(mean_b).all(), "config 1 means on the card are not finite")
+    err2 = ((mean_a - mean_b) ** 2).mean(axis=1)
+    robust = float(np.sqrt(np.sort(err2)[:int(n * 0.95)].mean()))
+    floor = float(np.sqrt(np.mean((var_a + var_b) / PARITY_SEEDS)))
+    diff = np.abs(mean_a - mean_b)
+    frac = float((diff.max(axis=1) > 0.1).mean())
+    log(f"parity config 1 ({size}x{size}, spp 1, depth 1, {PARITY_SEEDS} seeds; card "
+        f"{s_card:.1f} s, CPU plain versions {s_cpu:.1f} s): rmse_of_means "
+        f"{np.sqrt(err2.mean()):.6f}, rmse_robust_p95 {robust:.6f}, noise_floor "
+        f"{floor:.6f}, robust/floor {robust / floor:.4f}, mean |diff| of the means "
+        f"{diff.mean():.6f}, pixels > 0.1: {frac:.5%}, signal_rms "
+        f"{float(np.sqrt(np.mean(mean_a ** 2))):.6f}")
+    check(robust <= 1.5 * floor, f"config 1 parity: {robust:.6f} > 1.5 x {floor:.6f}")
+    # both sides draw the same seeds through the same code, so the means
+    # are also held per pixel, to the 64x64 card-vs-CPU bar (`_parity`)
+    check(diff.mean() < 0.02, f"config 1 parity: mean |diff| of the means {diff.mean():.5f}")
+    check(frac < 0.01, f"config 1 parity: {frac:.3%} pixels' means off by > 0.1")
 
 
 def _binary_bar(bs, o, d, label):
@@ -1689,6 +1882,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     from ilgpu_raytracing_tpu_torch.ops import cuda as cu
+    from ilgpu_raytracing_tpu_torch.ops.cuda import stream
 
     t_start = time.monotonic()
     dev = torch.device("cuda:0")
@@ -1713,6 +1907,8 @@ def main() -> int:
     timed("other scenes", phase_other_scenes, dev)
     timed("Cornell parity", phase_parity, dev)
     cornell_counts = timed("Cornell main path", phase_main_path, dev, bench)
+    mesh_counts = timed("mesh", phase_mesh, dev, bench)
+    timed("parity", phase_config1_parity, dev)
     timed("K6", phase_k6, dev, results, bench)
     timed("K6 parity", phase_k6_parity, dev)
     k6_counts = timed("K6 main path", phase_k6_main_path, dev, bench)
@@ -1729,6 +1925,8 @@ def main() -> int:
     del court
     terrain, ss = timed("terrain prep", phase_terrain_prep, dev)
     lanes = timed("K4/K5", phase_k4_k5, dev, results, terrain, ss)
+    split_counts = timed("terrain ray split", _ray_split, "K4/K5 terrain bounce lanes",
+                         stream, ss, lanes["bo"], lanes["bd"], lanes["act"], _meshes(dev))
     k8_counts = timed("K8", phase_k8, dev, results, ss, lanes)
     del ss, lanes
     timed("terrain parity", phase_terrain_parity, dev)
@@ -1779,7 +1977,8 @@ def main() -> int:
     # entry); K3 runs on all of them. Every bar was checked above, so a
     # kernel that reaches this line met it.
     paths = (cornell_counts, k6_counts, k7_counts, court_counts, terrain_counts,
-             k8_counts, settings_counts, config4_counts, session_counts)
+             k8_counts, settings_counts, config4_counts, session_counts, mesh_counts,
+             split_counts)
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=sum(c[name] for c in paths), bar=bar, result="met",

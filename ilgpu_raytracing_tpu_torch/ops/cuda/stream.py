@@ -22,6 +22,8 @@ Device side: `trace_closest_stream_packed` (K4) and
 run their plain versions on CPU tensors: the per-lane skip-index walk of
 ops/traverse.py over the SceneData the StreamScene was prepared from,
 packed into the 23-bit record. `decode_stream_hits` is the epilogue.
+`with_mesh` splits both wrappers' rays over a device mesh as
+ops/cuda/wide.py does (stream_kernel.with_mesh).
 """
 
 from __future__ import annotations
@@ -54,12 +56,14 @@ from ilgpu_raytracing_tpu_torch.ops.cuda.wide import (
     _octant_perms,
     _pp_to_record,
     _scene_needs_bary,
+    _shard_ray_op,
     _stack_bound,
     _wide_depth,
     check_walk_tables,
     launch_walk,
     plain_closest_packed,
 )
+from ilgpu_raytracing_tpu_torch.ops.cuda.wide import with_mesh as _wide_with_mesh
 from ilgpu_raytracing_tpu_torch.ops.traverse import HitRecord
 
 ROWS_PER_LEAF = 16  # up to 128 triangles per leaf
@@ -69,6 +73,13 @@ MAX_TRIS = 4_000_000
 TREELETS = 32  # boxes of the destination-treelet sort key
 
 LAUNCHES = {"stream_closest": 0, "stream_shadow": 0}
+
+
+def with_mesh(ss: StreamScene, mesh) -> StreamScene:
+    """Attach a device mesh: traces split rays over mesh axis "px", block
+    k traced by K4/K5 against a replica of the tables on mesh.devices[k]
+    (ops/cuda/wide.with_mesh)."""
+    return _wide_with_mesh(ss, mesh)
 
 
 def supports_scene(scene: SceneData, max_tris: int | None = None) -> bool:
@@ -104,6 +115,9 @@ class StreamScene:
     stack_cap: int = 256  # TPU frontier bound (table parity with the JAX prep)
     wide_depth: int = 0  # most inner wide nodes on a root-to-leaf chain
     needs_bary: bool = True
+    # set by `with_mesh` (as on WideScene)
+    mesh: object = None
+    replicas: object = None
     # (W, 32) i32 node records of K4, K5 and K8, derived from the wide tables
     anyhit_nodes: torch.Tensor = dataclasses.field(init=False, repr=False)
 
@@ -517,6 +531,9 @@ def trace_closest_stream_packed(ss: StreamScene, o, d, active=None, t_max=None):
     (inst*4+kind) << 23, miss = -1; t_max 0 marks an inactive lane."""
     t_max = _lane_t_max(o, t_max, active)
     _check_rays(ss.wide_child.device, o, d, t_max, "stream trace")
+    if ss.mesh is not None:
+        return _shard_ray_op(ss, lambda rep, oo, dd, tm: trace_closest_stream_packed(
+            rep, oo, dd, t_max=tm), o, d, t_max)
     if o.device.type == "cpu":
         return trace_closest_plain(ss, o, d, t_max)
     return _launch(ss, o, d, t_max, any_hit=False)
@@ -526,6 +543,8 @@ def shadow_occlusion_stream(ss: StreamScene, o, d, t_max_world, active=None):
     """K5: any-hit occlusion within (T_EPS, t_max_world); bool (N,)."""
     t_max = _lane_t_max(o, t_max_world, active)
     _check_rays(ss.wide_child.device, o, d, t_max, "stream trace")
+    if ss.mesh is not None:
+        return _shard_ray_op(ss, shadow_occlusion_stream, o, d, t_max)
     if o.device.type == "cpu":
         return shadow_plain(ss, o, d, t_max)
     return _launch(ss, o, d, t_max, any_hit=True)[0]

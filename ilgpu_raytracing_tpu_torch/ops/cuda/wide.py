@@ -20,10 +20,19 @@ Device side: `trace_closest_wide_packed` (K1) and `shadow_occlusion_wide`
 on CPU tensors: the per-lane skip-index walk of ops/traverse.py over the
 SceneData the WideScene was prepared from, wrapped to the kernel's packed
 `(t, pp)` / `occ` format. `decode_wide_hits` is the epilogue.
+
+Multi-device (wide_kernel.with_mesh): `with_mesh(ws, mesh)` replicates the
+tables onto each distinct device of a `parallel.sharding` mesh, and both
+wrappers then split their rays (`_shard_ray_op`): padded to a multiple of
+the mesh size with inactive lanes, block k traced on `mesh.devices[k]` by
+the same kernel against that device's replica, every block issued before
+the first copy back, the outputs concatenated on the rays' device. The
+result equals the unsharded call bit for bit.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -38,6 +47,7 @@ from ilgpu_raytracing_tpu_torch.ops import cuda as cu
 from ilgpu_raytracing_tpu_torch.ops import traverse
 from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF, intersect_triangle
 from ilgpu_raytracing_tpu_torch.ops.traverse import KIND_TRI, HitRecord
+from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
 from ilgpu_raytracing_tpu_torch.utils import vec
 
 _LANES = 128
@@ -263,6 +273,10 @@ class WideScene:
     wide_depth: int = 0  # most inner wide nodes on a root-to-leaf chain
     leaf_width: int = WIDTH
     needs_bary: bool = True
+    # set by `with_mesh`: traces split their rays over `mesh`, block k
+    # traced against `replicas.copies[k]`, these tables on mesh.devices[k]
+    mesh: object = None
+    replicas: object = None
     # (W, 64) i32 node records of K1, K2 and K7, derived from the wide tables
     nodes: torch.Tensor = dataclasses.field(init=False, repr=False)
 
@@ -591,11 +605,57 @@ def _lane_t_max(o, t_max, active):
     return t_max
 
 
+def with_mesh(ks, mesh):
+    """Attach a device mesh to a WideScene (or StreamScene): its traces
+    split their rays over mesh axis "px", block k traced on
+    `mesh.devices[k]` against a replica of the tables there (one copy on
+    each distinct device). The mesh's devices must be of the tables' type:
+    no block moves between the card and the CPU."""
+    kinds = {d.type for d in mesh.devices}
+    if kinds != {ks.wide_child.device.type}:
+        raise ValueError(f"with_mesh: a mesh of {sorted(kinds)} devices for tables "
+                         f"on {ks.wide_child.device}")
+    plain = copy.copy(ks)
+    plain.mesh = plain.replicas = None
+    out = copy.copy(plain)
+    out.mesh, out.replicas = mesh, shrd.replicate(mesh, plain)
+    return out
+
+
+def _shard_ray_op(ks, run, o, d, t_max):
+    """`run(replica, o, d, t_max)` on each block of the rays: the rays
+    padded to a multiple of the mesh size (t_max 0 on pad lanes, which
+    makes them inactive), block k moved to `mesh.devices[k]` and traced
+    against that device's replica by the same kernel (its plain version on
+    CPU tensors), the outputs moved back to the rays' device, concatenated
+    and cut to n. Every block's launch is issued before the first copy
+    back, so distinct devices overlap. A block whose kernel fails raises."""
+    mesh = ks.mesh
+    n = o.shape[0]
+    pad = -(-n // mesh.size) * mesh.size - n
+    if pad:
+        o = torch.cat([o, o.new_zeros((pad, 3))])
+        d = torch.cat([d, d.new_zeros((pad, 3))])
+        t_max = torch.cat([t_max, t_max.new_zeros((pad,))])
+    outs = []
+    for rows, dev, rep in zip(shrd.block_slices(n + pad, mesh), mesh.devices,
+                              ks.replicas.copies):
+        with shrd.device_scope(dev):
+            outs.append(run(rep, o[rows].to(dev), d[rows].to(dev), t_max[rows].to(dev)))
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat([x.to(o.device) for x in outs])[:n]
+    return tuple(torch.cat([x[i].to(o.device) for x in outs])[:n]
+                 for i in range(len(outs[0])))
+
+
 def trace_closest_wide_packed(ws: WideScene, o, d, active=None, t_max=None):
     """K1: closest hit as the packed record (t, pp), pp = prim |
     (inst*4+kind) << 20, miss = -1; t_max 0 marks an inactive lane."""
     t_max = _lane_t_max(o, t_max, active)
     _check_rays(ws.wide_child.device, o, d, t_max)
+    if ws.mesh is not None:
+        return _shard_ray_op(ws, lambda rep, oo, dd, tm: trace_closest_wide_packed(
+            rep, oo, dd, t_max=tm), o, d, t_max)
     if o.device.type == "cpu":
         return trace_closest_plain(ws, o, d, t_max)
     return _launch(ws, o, d, t_max, any_hit=False)
@@ -605,6 +665,8 @@ def shadow_occlusion_wide(ws: WideScene, o, d, t_max_world, active=None):
     """K2: any-hit occlusion within (T_EPS, t_max_world); bool (N,)."""
     t_max = _lane_t_max(o, t_max_world, active)
     _check_rays(ws.wide_child.device, o, d, t_max)
+    if ws.mesh is not None:
+        return _shard_ray_op(ws, shadow_occlusion_wide, o, d, t_max)
     if o.device.type == "cpu":
         return shadow_plain(ws, o, d, t_max)
     return _launch(ws, o, d, t_max, any_hit=True)[0]

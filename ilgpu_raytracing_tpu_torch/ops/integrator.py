@@ -18,7 +18,9 @@ Without one the traces go to the plain tracer of ops/traverse.py directly.
 On a scene with alpha cutouts every trace peels around the kernel scene's
 closest-hit kernel (ops/alpha.py); the plain tracer tests the masks in its
 loop. Pixel batches above `chunk_pixels` run as equal chunks, trace lanes
-(spp x pixels) counted on the plain-tracer and alpha paths. Two settings
+(spp x pixels) counted on the plain-tracer and alpha paths. Under a device
+mesh (runtime/renderer.render_frame_mesh) both entry points take one
+device's contiguous pixel block (`pixels`). Two settings
 reshape the dispatches without changing what is traced:
 `spp_pixel_major` (a pixel's samples on adjacent lanes) and
 `deferred_shadows` (every visibility ray of the frame in one sorted
@@ -168,12 +170,15 @@ def _shadow(scene, kscene, o, d, t_max: float, active=None, sort=False,
 
 
 def primary_visibility(scene: SceneData, camera, width: int, height: int,
-                       chunk_pixels: int = 0, wscene=None) -> GBuffer:
+                       chunk_pixels: int = 0, wscene=None,
+                       pixels: slice | None = None) -> GBuffer:
     """Primary trace + deferred shading, in equal chunks of at most
-    `chunk_pixels` pixels (one batch when 0)."""
-    n = width * height
+    `chunk_pixels` pixels (one batch when 0). With `pixels` (a slice of
+    positions: one device's block of a mesh) only those pixels."""
     u, v = rays_mod.pixel_centers(width, height, scene.device)
-    c = _pick_n_chunks(n, chunk_pixels)
+    if pixels is not None:
+        u, v = u[pixels], v[pixels]
+    c = _pick_n_chunks(u.shape[0], chunk_pixels)
     parts = []
     for uc, vc in zip(u.chunk(c), v.chunk(c)):
         o, d = rays_mod.generate_rays(camera, uc, vc)
@@ -283,7 +288,9 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
         scale their contribution by 1/p; scale is None when off."""
         if cfg.shadow_rr_lum <= 0.0:
             return act, None
-        c = torch.clamp(contrib_rgb @ lum_w, min=0.0)
+        # the terms in a fixed order (vec.dot): a matmul's reduction can
+        # depend on the batch size, and a mesh block is a smaller batch
+        c = torch.clamp(vec.dot(contrib_rgb, lum_w), min=0.0)
         p = torch.clamp(c * (1.0 / cfg.shadow_rr_lum), cfg.shadow_rr_pmin, 1.0)
         u = rng_mod.side_float(state, salt)
         return act & (u < p), torch.where(u < p, 1.0 / p, torch.zeros_like(p))
@@ -547,7 +554,7 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
 
 def path_trace(scene: SceneData, gb: GBuffer, camera, prev_camera, res_prev,
                res_cur_init, frame, noise_key, sun_dir, cfg: RenderConfig,
-               width: int, height: int, wscene=None):
+               width: int, height: int, wscene=None, pixels: slice | None = None):
     """Shade the G-buffer with spp samples of multi-bounce transport.
 
     Returns (color (N,3) linear, depth (N,), obj_id (N,), res_cur,
@@ -557,8 +564,13 @@ def path_trace(scene: SceneData, gb: GBuffer, camera, prev_camera, res_prev,
     Pixel batches above the chunk target run as equal chunks, one after
     the other. Each chunk's ReSTIR reuse still gathers from the full-image
     G-buffer and `res_prev`, so the chunked frame equals the unchunked one
-    bit for bit."""
-    n = width * height
+    bit for bit. With `pixels` (a slice of positions: one device's block of
+    a mesh) only those pixels are traced, chunked by the same rule: `gb`
+    and `res_prev` stay full-image, `res_cur_init` and the outputs cover
+    the slice, and every lane keeps its global pixel index (its noise
+    stream), so the blocks together equal the whole frame bit for bit."""
+    start, stop = (0, width * height) if pixels is None else (pixels.start, pixels.stop)
+    n = stop - start
     target = cfg.chunk_pixels
     if target and (wscene is None or scene.has_alpha):
         # the plain tracer and the alpha peel chunk by trace lanes, as the
@@ -566,12 +578,13 @@ def path_trace(scene: SceneData, gb: GBuffer, camera, prev_camera, res_prev,
         target = max(1, target // max(1, cfg.spp))
     c = _pick_n_chunks(n, target)
     m = n // c
-    pixel_idx = torch.arange(n, dtype=torch.int32, device=scene.device)
+    pixel_idx = torch.arange(start, stop, dtype=torch.int32, device=scene.device)
     outs = []
     for k in range(c):
         rows = slice(k * m, (k + 1) * m)
+        glob = slice(start + k * m, start + (k + 1) * m)
         outs.append(_path_trace_block(
-            scene, gb, gb.map(lambda x: x[rows]), pixel_idx[rows], camera,
+            scene, gb, gb.map(lambda x: x[glob]), pixel_idx[rows], camera,
             prev_camera, res_prev, res_cur_init.map(lambda x: x[rows]), frame,
             noise_key, sun_dir, cfg, width, height, wscene,
         ))

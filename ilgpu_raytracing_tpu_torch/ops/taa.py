@@ -49,9 +49,9 @@ def _sample_x(img, out_w: int, offset: float):
     return img[:, x1] * (1.0 - w) + img[:, x2] * w
 
 
-def _sample_y(img, out_h: int, offset: float):
-    """(in_h, W, 3) -> (out_h, W, 3) smoothstep blend along y."""
-    y1, y2, tty = _axis_taps(out_h, img.shape[0], offset, img.device)
+def _sample_y(img, out_h: int, offset: float, rows: slice):
+    """(in_h, W, 3) -> (out rows, W, 3) smoothstep blend along y."""
+    y1, y2, tty = (t[rows] for t in _axis_taps(out_h, img.shape[0], offset, img.device))
     w = tty[:, None, None]
     return img[y1] * (1.0 - w) + img[y2] * w
 
@@ -59,32 +59,41 @@ def _sample_y(img, out_h: int, offset: float):
 def resolve_upsample(low_color, low_obj_id, history_color, history_obj_id,
                      history_valid: bool, in_w: int, in_h: int, out_w: int,
                      out_h: int, feedback: float = 0.075,
-                     sharpness: float = 0.10):
+                     sharpness: float = 0.10, pixels: slice | None = None):
     """Returns (out_packed, new_history_color, new_history_obj); packed
-    colors are 0xAARRGGBB in int64, history row-major at output res."""
+    colors are 0xAARRGGBB in int64, history row-major at output res.
+
+    With `pixels` (a slice of row-major output positions: one device's
+    block of a mesh, which may start mid-row) only those pixels resolve:
+    the low-res inputs stay whole, the history and the outputs cover the
+    slice. Taps are computed for the rows the slice spans; history is read
+    only at its own pixel (no motion vectors)."""
+    start, stop = (0, out_w * out_h) if pixels is None else (pixels.start, pixels.stop)
+    rows = slice(start // out_w, -(-stop // out_w))
     low_img = packing.unpack_srgb(layout.to_image(low_color, in_w, in_h))
 
     # 3 x-offsets x 3 y-offsets = the center tap + 8 neighborhood taps
     tx = {ox: _sample_x(low_img, out_w, ox * 0.5) for ox in (-1, 0, 1)}
-    cur = _sample_y(tx[0], out_h, 0.0)
+    cur = _sample_y(tx[0], out_h, 0.0, rows)
     nmin = cur
     nmax = cur
     for oy in (-1, 0, 1):
         for ox in (-1, 0, 1):
             if ox == 0 and oy == 0:
                 continue
-            c = _sample_y(tx[ox], out_h, oy * 0.5)
+            c = _sample_y(tx[ox], out_h, oy * 0.5, rows)
             nmin = torch.minimum(nmin, c)
             nmax = torch.maximum(nmax, c)
 
     obj_img = layout.to_image(low_obj_id, in_w, in_h)
     dev = low_color.device
-    obj = obj_img[_nearest_taps(out_h, in_h, dev)][:, _nearest_taps(out_w, in_w, dev)]
+    obj = obj_img[_nearest_taps(out_h, in_h, dev)[rows]][:, _nearest_taps(out_w, in_w, dev)]
 
-    cur = cur.reshape(-1, 3)
-    nmin = nmin.reshape(-1, 3)
-    nmax = nmax.reshape(-1, 3)
-    obj = obj.reshape(-1)
+    span = slice(start - rows.start * out_w, stop - rows.start * out_w)
+    cur = cur.reshape(-1, 3)[span]
+    nmin = nmin.reshape(-1, 3)[span]
+    nmax = nmax.reshape(-1, 3)[span]
+    obj = obj.reshape(-1)[span]
 
     hist = packing.unpack_srgb(history_color)
     reset = (history_obj_id != obj) | (not bool(history_valid))

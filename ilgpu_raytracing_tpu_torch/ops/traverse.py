@@ -145,40 +145,43 @@ def _blas_walk(scene: SceneData, o_obj, d_obj, start_cur, t_max0, kind: int,
 
         sub = torch.nonzero(hit_box & is_leaf).squeeze(1)
         if sub.numel() > 0:
-            so, sd, sfirst, scount = o[sub], d[sub], first[sub], count[sub]
+            # every slot of the hit leaves in one batch of (lanes, leaf_max)
+            # elementwise tests, folded in slot order below
+            k = sub.numel()
+            slots = torch.arange(leaf_max, device=dev)
+            prim, ok, t, bu, bv = _leaf_test(
+                scene, kind, (first[sub, None] + slots).reshape(-1),
+                o[sub].repeat_interleave(leaf_max, 0),
+                d[sub].repeat_interleave(leaf_max, 0))
+            if alpha:
+                ok = ok & _tri_alpha_pass(scene, prim, bu, bv, closest=not any_hit)
+            prim, ok, t, bu, bv = (x.reshape(k, leaf_max) for x in (prim, ok, t, bu, bv))
+            valid = (slots < count[sub, None]) & ok & (t > T_EPS)
             if any_hit:
-                occ = live[0][sub]
-                stl = tlim[sub]
-                for i in range(leaf_max):
-                    valid = (i < scount) & (~occ)
-                    prim, ok, t, bu, bv = _leaf_test(scene, kind, sfirst + i, so, sd)
-                    if alpha:
-                        ok = ok & _tri_alpha_pass(scene, prim, bu, bv, closest=False)
-                    occ = occ | (valid & ok & (t > T_EPS) & (t < stl))
-                live[0][sub] = occ
+                live[0][sub] = live[0][sub] | (valid & (t < tlim[sub, None])).any(dim=1)
             else:
-                t_best, prim_best, bu_best, bv_best = (s[sub] for s in live)
-                for i in range(leaf_max):
-                    valid = i < scount
-                    prim, ok, t, bu, bv = _leaf_test(scene, kind, sfirst + i, so, sd)
-                    if alpha:
-                        ok = ok & _tri_alpha_pass(scene, prim, bu, bv, closest=True)
-                    accept = valid & ok & (t > T_EPS) & (t < t_best)
-                    t_best = torch.where(accept, t, t_best)
-                    prim_best = torch.where(accept, prim, prim_best)
-                    bu_best = torch.where(accept, bu, bu_best)
-                    bv_best = torch.where(accept, bv, bv_best)
-                for s, v in zip(live, (t_best, prim_best, bu_best, bv_best)):
-                    s[sub] = v
+                # slot order with a strict `<`: the first slot holding the
+                # leaf's least t, kept where it beats the lane's best so far
+                t = torch.where(valid, t, T_INF)
+                t_min = t.amin(dim=1, keepdim=True)
+                i = torch.where(t == t_min, slots, leaf_max).amin(dim=1, keepdim=True)
+                t_best = live[0][sub]
+                accept = t_min[:, 0] < t_best
+                for s, v in zip(live, (t_min, prim.gather(1, i), bu.gather(1, i),
+                                       bv.gather(1, i))):
+                    s[sub] = torch.where(accept, v[:, 0], s[sub])
 
         nxt = torch.where(hit_box, torch.where(is_leaf, skip, left), skip)
         if any_hit:
             nxt = torch.where(live[0], torch.full_like(nxt, -1), nxt)
         done = nxt < 0
-        fin = lanes[done]
+        fin = torch.nonzero(done).squeeze(1)
+        if fin.numel() == 0:
+            cur = nxt
+            continue
         for s_out, s in zip(out, live):
-            s_out[fin] = s[done]
-        keep = ~done
+            s_out[lanes[fin]] = s[fin]
+        keep = torch.nonzero(~done).squeeze(1)
         lanes, cur = lanes[keep], nxt[keep]
         o, d, inv, tlim = o[keep], d[keep], inv[keep], tlim[keep]
         live = [s[keep] for s in live]

@@ -22,15 +22,23 @@ def _axis_taps(out_size: int, in_size: int, device):
             torch.as_tensor(t, device=device))
 
 
-def bilinear_upsample(src_packed, src_w: int, src_h: int, dst_w: int, dst_h: int):
+def bilinear_upsample(src_packed, src_w: int, src_h: int, dst_w: int, dst_h: int,
+                      pixels: slice | None = None):
+    """Row-major (dst_h*dst_w,) packed frame; with `pixels` (a slice of
+    its positions: one device's block of a mesh) only those pixels."""
+    if pixels is None:
+        pixels = slice(0, dst_w * dst_h)
     if (src_w, src_h) == (dst_w, dst_h):
         # block-linear src -> row-major presented frame (pure transpose)
-        return layout.to_image(src_packed, src_w, src_h).reshape(-1)
+        return layout.to_image(src_packed, src_w, src_h).reshape(-1)[pixels]
+    rows = slice(pixels.start // dst_w, -(-pixels.stop // dst_w))
     dev = src_packed.device
     img = packing.unpack_rgb8(layout.to_image(src_packed, src_w, src_h))
     x0, x1, tx = _axis_taps(dst_w, src_w, dev)
-    y0, y1, ty = _axis_taps(dst_h, src_h, dev)
+    y0, y1, ty = (t[rows] for t in _axis_taps(dst_h, src_h, dev))
     w = tx[None, :, None]
     cx = img[:, x0] * (1.0 - w) + img[:, x1] * w
     w = ty[:, None, None]
-    return packing.pack_rgba8((cx[y0] * (1.0 - w) + cx[y1] * w).reshape(-1, 3))
+    out = (cx[y0] * (1.0 - w) + cx[y1] * w).reshape(-1, 3)
+    span = slice(pixels.start - rows.start * dst_w, pixels.stop - rows.start * dst_w)
+    return packing.pack_rgba8(out[span])

@@ -3,6 +3,9 @@
 Reservoir ping-pong buffers, TAA history and progressive accumulation in
 one dataclass carried through the frame step; the ping-pong is a host-side
 swap of fields. `save`/`load` read and write the JAX package's npz format.
+Under a mesh the per-pixel fields are `PixelShards`
+(parallel/sharding.shard_state): `save` gathers them to the host and
+`load(..., mesh=)` places them again.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from ilgpu_raytracing_tpu_torch.ops.restir import Reservoirs
+from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
 
 _RES_FIELDS = ("L", "wi", "pdf", "w", "w_sum", "m", "light_id", "W")
 
@@ -45,20 +49,28 @@ class FrameState:
     # ---- checkpoint / resume (the JAX package's npz keys) ----
 
     def save(self, path: str) -> None:
+        def host(x):
+            if isinstance(x, shrd.PixelShards):
+                return x.gather("cpu")
+            return shrd.to_device(x, "cpu")
+
         flat = {}
         for p in ("res_prev", "res_cur"):
-            res = getattr(self, p)
+            res = host(getattr(self, p))
             for k in _RES_FIELDS:
-                flat[f"{p}_{k}"] = getattr(res, k).cpu().numpy()
-        flat["taa_color"] = self.taa_color.cpu().numpy().astype(np.uint32)
-        flat["taa_obj"] = self.taa_obj.cpu().numpy()
+                flat[f"{p}_{k}"] = getattr(res, k).numpy()
+        flat["taa_color"] = host(self.taa_color).numpy().astype(np.uint32)
+        flat["taa_obj"] = host(self.taa_obj).numpy()
         flat["taa_valid"] = np.asarray(bool(self.taa_valid))
-        flat["accum"] = self.accum.cpu().numpy()
+        flat["accum"] = host(self.accum).numpy()
         flat["accum_count"] = np.asarray(int(self.accum_count), np.int32)
         np.savez(path, **flat)
 
     @staticmethod
-    def load(path: str, device="cuda") -> "FrameState":
+    def load(path: str, device="cuda", mesh: shrd.Mesh | None = None) -> "FrameState":
+        """The state saved at `path` on `device`, or sharded over `mesh`."""
+        if mesh is not None:
+            return shrd.shard_state(mesh, FrameState.load(path, "cpu"))
         z = np.load(path)
         t = lambda a, dt=None: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
 

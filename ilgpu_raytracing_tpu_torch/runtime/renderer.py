@@ -17,8 +17,17 @@ its own. A caller may set `r.wscene = binary.prepare_binary(r.scene)`
 runs the binary skip-index kernel K6. A scene with alpha cutouts (an OBJ
 with `map_d`, models/sponza_like.py) routes by size like any other, and
 every trace of its frame peels around the closest-hit kernel of its route,
-K1, K4 or K6 (ops/alpha.py): the any-hit kernels do not run on it. Every
-RenderConfig setting renders; only `mesh=` (multi-device) is refused.
+K1, K4 or K6 (ops/alpha.py): the any-hit kernels do not run on it.
+
+`Renderer(mesh=parallel.sharding.make_mesh(...))` renders over a device
+mesh (`render_frame_mesh`): the internal resolution is snapped so both
+pixel counts divide the mesh, the FrameState is sharded and the scene and
+its kernel tables replicated (`with_mesh`), and device k runs the whole
+frame step for its own contiguous pixel block after gathering the
+full-image G-buffer, `res_prev` and packed low-res frame that ReSTIR's
+and TAAU's taps read. The frame equals the single-device frame bit for
+bit. The renderer runs on the mesh's devices; an explicit `device=` that
+disagrees with them raises.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from ilgpu_raytracing_tpu_torch.models.scene import SceneData, build_default_sce
 from ilgpu_raytracing_tpu_torch.ops import integrator, sky, taa, tonemap, upsample
 from ilgpu_raytracing_tpu_torch.ops.cuda import stream as stream_mod
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide as wide_mod
+from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
 from ilgpu_raytracing_tpu_torch.runtime.framestate import FrameState
 from ilgpu_raytracing_tpu_torch.runtime.hud import FrameTimingHud
 from ilgpu_raytracing_tpu_torch.utils import image, packing
@@ -54,29 +64,15 @@ def render_frame(scene: SceneData, camera, prev_camera, state: FrameState,
         frame, noise_key, sun_dir, cfg, in_w, in_h, wscene,
     )
 
-    if cfg.progressive_accumulation:
-        accum = color if accum_reset else state.accum + color
-        count = 1 if accum_reset else state.accum_count + 1
-        display = tonemap.OPERATORS[tonemap_name](accum / float(count))
-    else:
-        accum, count = state.accum, state.accum_count
-        display = tonemap.OPERATORS[tonemap_name](color)
-    low_packed = packing.pack_rgba8(display)
-
-    if cfg.enable_taau:
-        out_packed, taa_color, taa_obj = taa.resolve_upsample(
-            low_packed, obj_id, state.taa_color, state.taa_obj,
-            state.taa_valid, in_w, in_h, out_w, out_h,
-            cfg.taa_feedback, cfg.taa_sharpness,
-        )
-        taa_valid = True
-    else:
-        out_packed = upsample.bilinear_upsample(low_packed, in_w, in_h, out_w, out_h)
-        taa_color, taa_obj, taa_valid = state.taa_color, state.taa_obj, state.taa_valid
-
+    low_packed, accum, count = _display(color, state.accum, state.accum_count,
+                                        accum_reset, cfg, tonemap_name)
+    out_packed, taa_color, taa_obj = _upsample(
+        low_packed, obj_id, state.taa_color, state.taa_obj, state.taa_valid,
+        cfg, in_w, in_h, out_w, out_h)
     new_state = FrameState(
         res_prev=state.res_prev, res_cur=res_cur, taa_color=taa_color,
-        taa_obj=taa_obj, taa_valid=taa_valid, accum=accum, accum_count=count,
+        taa_obj=taa_obj, taa_valid=state.taa_valid or cfg.enable_taau,
+        accum=accum, accum_count=count,
     )
     # effective rays = alive dispatched trace lanes + one primary per pixel
     aux = dict(color=color, depth=depth, obj_id=obj_id,
@@ -84,21 +80,120 @@ def render_frame(scene: SceneData, camera, prev_camera, state: FrameState,
     return out_packed, new_state, aux
 
 
+def _display(color, accum, accum_count: int, accum_reset: bool,
+             cfg: RenderConfig, tonemap_name: str):
+    """Progressive accumulation, tone map and pack of low-res pixels.
+    Returns (low_packed, accum, accum_count)."""
+    if cfg.progressive_accumulation:
+        accum = color if accum_reset else accum + color
+        accum_count = 1 if accum_reset else accum_count + 1
+        display = tonemap.OPERATORS[tonemap_name](accum / float(accum_count))
+    else:
+        display = tonemap.OPERATORS[tonemap_name](color)
+    return packing.pack_rgba8(display), accum, accum_count
+
+
+def _upsample(low_packed, obj_id, taa_color, taa_obj, taa_valid: bool,
+              cfg: RenderConfig, in_w: int, in_h: int, out_w: int, out_h: int,
+              pixels: slice | None = None):
+    """TAAU resolve (or the bilinear blit) of the whole low-res frame into
+    the output pixels `pixels` (all when None). Returns (out_packed,
+    taa_color, taa_obj), the history unchanged without TAAU."""
+    if cfg.enable_taau:
+        return taa.resolve_upsample(
+            low_packed, obj_id, taa_color, taa_obj, taa_valid, in_w, in_h,
+            out_w, out_h, cfg.taa_feedback, cfg.taa_sharpness, pixels)
+    out = upsample.bilinear_upsample(low_packed, in_w, in_h, out_w, out_h, pixels)
+    return out, taa_color, taa_obj
+
+
+def _block_kscene(kscene, k: int):
+    """Device k's kernel scene: its replica when the scene carries a mesh
+    (`with_mesh`), the scene itself otherwise (the plain tracer's None, or
+    a caller's BinaryScene: K6 has no mesh split)."""
+    if getattr(kscene, "mesh", None) is None:
+        return kscene
+    return kscene.replicas.copies[k]
+
+
+def render_frame_mesh(mesh: shrd.Mesh, scenes: shrd.Replicated, camera,
+                      prev_camera, state: FrameState, frame: int, noise_key: int,
+                      sun_dir, accum_reset: bool, cfg: RenderConfig, in_w: int,
+                      in_h: int, out_w: int, out_h: int, tonemap_name: str = "clamp",
+                      wscene=None, device=None):
+    """`render_frame` over a pixel-block split: device k of `mesh`
+    computes low-res block k (primary, path trace, tone map and pack) and
+    output block k (TAAU), tracing against its replicas (`scenes.copies[k]`
+    and `wscene`'s), after gathering the full-image G-buffer, `res_prev`,
+    packed low-res frame and object ids onto itself. `state` is sharded
+    (`shard_state`). The blocks' launches are issued device after device
+    from this one thread, each under its device's CUDA scope. Returns
+    (packed_out, the new sharded state, aux), the frame and aux gathered
+    onto `device` and equal to `render_frame`'s bit for bit."""
+    device = mesh.devices[0] if device is None else device
+    low = shrd.block_slices(in_w * in_h, mesh)
+    out = shrd.block_slices(out_w * out_h, mesh)
+    kscenes = [_block_kscene(wscene, k) for k in range(mesh.size)]
+
+    def per_block(fn):
+        """fn(k, device k) for every block, on device k."""
+        parts = []
+        for k, dev in enumerate(mesh.devices):
+            with shrd.device_scope(dev):
+                parts.append(fn(k, dev))
+        return parts
+
+    def shards(parts):
+        return shrd.PixelShards(shrd.pixel_sharding(mesh), tuple(parts))
+
+    gb = shards(per_block(lambda k, dev: integrator.primary_visibility(
+        scenes.copies[k], camera, in_w, in_h, cfg.chunk_pixels, kscenes[k], low[k])))
+    traced = per_block(lambda k, dev: integrator.path_trace(
+        scenes.copies[k], gb.gather(dev), camera, prev_camera,
+        state.res_prev.gather(dev), state.res_cur.blocks[k], frame, noise_key,
+        sun_dir, cfg, in_w, in_h, kscenes[k], low[k]))
+    cols = list(zip(*traced))
+    color, depth, obj_id, res_cur = (shards(x) for x in cols[:4])
+    shown = per_block(lambda k, dev: _display(
+        color.blocks[k], state.accum.blocks[k], state.accum_count, accum_reset, cfg,
+        tonemap_name))
+    low_packed = shards(x[0] for x in shown)
+    ups = per_block(lambda k, dev: _upsample(
+        low_packed.gather(dev), obj_id.gather(dev), state.taa_color.blocks[k],
+        state.taa_obj.blocks[k], state.taa_valid, cfg, in_w, in_h, out_w, out_h, out[k]))
+    out_packed, taa_color, taa_obj = (shards(x) for x in zip(*ups))
+    new_state = FrameState(
+        res_prev=state.res_prev, res_cur=res_cur, taa_color=taa_color,
+        taa_obj=taa_obj, taa_valid=state.taa_valid or cfg.enable_taau,
+        accum=shards(x[1] for x in shown), accum_count=shown[0][2],
+    )
+    aux = dict(color=color.gather(device), depth=depth.gather(device),
+               obj_id=obj_id.gather(device),
+               eff_rays=sum(e.to(device) for e in cols[4]) + float(in_w * in_h))
+    return out_packed.gather(device), new_state, aux
+
+
 class Renderer:
-    """Host-side frame loop on one explicit device."""
+    """Host-side frame loop on one explicit device, or over a device mesh
+    (`mesh`, parallel/sharding.py)."""
 
     def __init__(self, out_w: int = 1280, out_h: int = 720,
                  cfg: RenderConfig | None = None, scene: SceneData | None = None,
                  camera: Camera | None = None, tonemap_name: str = "clamp",
-                 reference_pose: bool = False, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device rendering: ROADMAP Queue 1, multi-device "
-                "(parallel/sharding.py)"
-            )
+                 reference_pose: bool = False, mesh: shrd.Mesh | None = None,
+                 device="cuda"):
+        self.mesh = mesh
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"Renderer: unsupported device {self.device}")
+        if mesh is not None:
+            # the frame is assembled on `device`, which must be a mesh device
+            if self.device.index is None and self.device.type == mesh.devices[0].type:
+                self.device = mesh.devices[0]
+            if self.device not in mesh.devices:
+                raise ValueError(
+                    f"Renderer: device {device} is not a device of the mesh "
+                    f"{mesh.devices}")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Renderer: no CUDA device; pass device='cpu' to render with "
@@ -113,14 +208,14 @@ class Renderer:
         self.wscene = None
         self.set_scene(scene)
         self.out_w, self.out_h = out_w, out_h
-        self.in_w, self.in_h = self.cfg.internal_resolution(out_w, out_h)
+        self.in_w, self.in_h = self._internal_resolution(out_w, out_h)
         if camera is None:
             camera = Camera.create(out_w, out_h, 60.0)
             if reference_pose:
                 camera = camera.translate([1, 0, -4])
         self.camera = camera
         self.prev_camera = camera
-        self.state = FrameState.create(self.in_w * self.in_h, out_w * out_h, self.device)
+        self.state = self._new_state()
         self.frame = 0
         self.sun_azimuth = self.cfg.sun_azimuth
         self.sun_elevation = self.cfg.sun_elevation
@@ -167,9 +262,32 @@ class Renderer:
         re-prepare the kernel tables. This is also the per-frame entry of
         a refit scene (models/scene.refit_mesh_instance, BASELINE config
         4): the tables are read back, rebuilt on the host and uploaded on
-        every call, as the JAX package re-prepares its Pallas scene."""
+        every call, as the JAX package re-prepares its Pallas scene. Under
+        a mesh the scene and the new tables are replicated again."""
         self.scene = scene.to(self.device)
         self._prepare_wscene(self.scene)
+        if self.mesh is not None:
+            # block k traces against device k's replicas
+            self._scenes = shrd.replicate(self.mesh, self.scene)
+            if self.wscene is not None:
+                self.wscene = wide_mod.with_mesh(self.wscene, self.mesh)
+
+    def _internal_resolution(self, out_w: int, out_h: int) -> tuple[int, int]:
+        """The config's internal resolution; under a mesh snapped so the
+        internal pixel count divides it, and the output pixel count must
+        (the TAA history is sharded per output pixel)."""
+        if self.mesh is None:
+            return self.cfg.internal_resolution(out_w, out_h)
+        if (out_w * out_h) % self.mesh.size != 0:
+            raise ValueError(
+                f"output pixel count {out_w}x{out_h} must divide the mesh size "
+                f"{self.mesh.size} (TAA history is sharded per-pixel)")
+        return shrd.divisible_internal_resolution(self.cfg, out_w, out_h, self.mesh.size)
+
+    def _new_state(self) -> FrameState:
+        state = FrameState.create(self.in_w * self.in_h, self.out_w * self.out_h,
+                                  self.device)
+        return state if self.mesh is None else shrd.shard_state(self.mesh, state)
 
     # ---- camera ----
 
@@ -194,9 +312,9 @@ class Renderer:
 
     def resize(self, out_w: int, out_h: int) -> None:
         """Re-derive internal res, drop history, reset frame index."""
+        self.in_w, self.in_h = self._internal_resolution(out_w, out_h)
         self.out_w, self.out_h = out_w, out_h
-        self.in_w, self.in_h = self.cfg.internal_resolution(out_w, out_h)
-        self.state = FrameState.create(self.in_w * self.in_h, out_w * out_h, self.device)
+        self.state = self._new_state()
         self.frame = 0
         self._camera_moved = True
 
@@ -212,11 +330,14 @@ class Renderer:
             0 if self.cfg.rng_lock_noise == 0 else self._rng.getrandbits(32) | 1
         )
         state = self.state.swapped_reservoirs() if self.frame > 0 else self.state
-        packed, new_state, aux = render_frame(
-            self.scene, self.camera, self.prev_camera, state, self.frame,
-            noise_key, sun_dir, self._camera_moved, self.cfg, self.in_w,
-            self.in_h, self.out_w, self.out_h, self.tonemap_name, self.wscene,
-        )
+        args = (self.camera, self.prev_camera, state, self.frame, noise_key,
+                sun_dir, self._camera_moved, self.cfg, self.in_w, self.in_h,
+                self.out_w, self.out_h, self.tonemap_name, self.wscene)
+        if self.mesh is None:
+            packed, new_state, aux = render_frame(self.scene, *args)
+        else:
+            packed, new_state, aux = render_frame_mesh(
+                self.mesh, self._scenes, *args, device=self.device)
         self.state = new_state
         self.prev_camera = self.camera
         self.frame += 1

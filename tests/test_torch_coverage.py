@@ -36,10 +36,7 @@ NO_COUNTERPART = {
     },
 }
 
-TO_PORT = {
-    "parallel/__init__.py": 2,
-    "parallel/sharding.py": 2,
-}
+TO_PORT: dict[str, int] = {}
 
 
 def _modules() -> list[str]:

@@ -37,6 +37,7 @@ from ilgpu_raytracing_tpu_torch.ops import integrator as tint
 from ilgpu_raytracing_tpu_torch.ops import layout
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide as twide
 from ilgpu_raytracing_tpu_torch.ops.restir import Reservoirs as TRes
+from ilgpu_raytracing_tpu_torch.parallel.sharding import make_mesh
 from ilgpu_raytracing_tpu_torch.runtime import renderer as trenderer
 from ilgpu_raytracing_tpu_torch.runtime.framestate import FrameState as TState
 from ilgpu_raytracing_tpu_torch.utils import packing as tpack
@@ -244,6 +245,10 @@ def test_renderer_on_cpu_and_refusals(scenes, tmp_path):
                                dataclasses.replace(ts, has_alpha=True), tcam(OUT, OUT),
                                device="cpu")
     assert alpha.render().shape == (OUT * OUT,)
-    # multi-device rendering stays refused, naming its ROADMAP item
-    with pytest.raises(NotImplementedError, match=r"parallel/sharding\.py"):
-        trenderer.Renderer(OUT, OUT, mesh=object(), device="cpu")
+    # multi-device rendering: a 4-block simulated CPU mesh renders the
+    # single-device frame (tests/test_torch_sharding.py has the cases)
+    mesh = make_mesh(devices=[torch.device("cpu")] * 4)
+    cfg = RenderConfig(spp=1, max_depth=1)
+    frames = [trenderer.Renderer(OUT, OUT, cfg, ts, tcam(OUT, OUT), mesh=m,
+                                 device="cpu").render() for m in (None, mesh)]
+    assert torch.equal(frames[0], frames[1])
