@@ -33,7 +33,15 @@ PyTorch version on the card:
   `spp_pixel_major`;
 - the bench frame through `Renderer(mesh=...)` (parallel/sharding.py):
   on `make_mesh()` and on a 4-block mesh of cuda:0, K1/K2/K3 once per
-  block, and K1/K2 and K4/K5 through `with_mesh`'s ray split.
+  block, the same with a caller's BinaryScene (K6/K3 once per block), and
+  K1/K2 and K4/K5 through `with_mesh`'s ray split;
+- `bench_torch.py`, the port's benchmark entry, at its full size (the
+  bench frame, 1 + 3 x 6 frames): K1/K2/K3;
+- each `examples/torch_*.py` at small sizes: the 6-sphere scene and the
+  Cornell scene (SAH, median and LBVH builds) through K1/K2/K3, the
+  config-4 loop, a 262,144-triangle terrain through K4/K5/K3, the
+  courtyard's peel around K1, config-1 parity, and the fly viewer without
+  a display.
 
 Phases:
   1. device: the card's name and power limit;
@@ -64,9 +72,16 @@ Phases:
      * 4))`, one warm-up and 2 frames each in turns with the
      single-device Renderer of the same seed: packed frame and aux colour
      bit-equal every frame, launches K1 3n, K2 5n, K3 6n, ms/frame, the
-     bytes the gathers copied and moved;
-  6b. parity, BASELINE config 1 (examples/parity_check.py's comparison):
-     the default sphere scene at 512x512, spp 1, max_depth 1, reuse off,
+     bytes the gathers copied and moved; then the same with a caller's
+     BinaryScene set as `r.wscene` on every Renderer (the mesh Renderers
+     replicate it once, `binary.with_mesh`): bit-equal every frame,
+     launches K6 3n + 5n, K3 6n;
+  6b. bench_torch: `bench_torch.run` at its full size, its JSON line
+     printed and its fields checked (11,714,560 rays dispatched a frame,
+     internal 1280x704, 15,552 triangles, 3 windows of 6 frames, the
+     card's nvidia-smi line), K1 3, K2 5, K3 6 launches a frame;
+  6c. parity, BASELINE config 1 (examples/torch_parity_check.py's
+     `mean_var` and `compare`): the default sphere scene at 512x512, spp 1, max_depth 1, reuse off,
      16 noise seeds, the kernels on the card against the plain versions on
      the CPU: the robust RMSE of the per-pixel means within 1.5x the
      Monte-Carlo floor, and the means held per pixel to the 64x64
@@ -146,7 +161,15 @@ Phases:
      their sum); then the same tables with has_alpha off (the opaque
      control of tools/alphabench.py) and the alpha frame in one chunk
      (chunk_pixels=0) in turns with the alpha frames, the medians and
-     their ratios.
+     their ratios;
+ 22. the examples: each examples/torch_*.py `main` in this process on the
+     card, its output printed: torch_render_default 256x256, 2 frames;
+     torch_render_cornell 320x240 with --bvh sah, median and lbvh;
+     torch_animate 160x120, 3 frames; torch_large_mesh 640x360 on a
+     512x256 grid (262,144 triangles: the StreamScene route, K4 and K5
+     launched); torch_sponza_like 320x180; torch_parity_check --size 128
+     --seeds 4 within the noise floor; torch_fly without DISPLAY returns 1
+     with its message. Every PNG has its size and more than one colour.
 
 Each kernel's bound is the larger of the bytes it must move (rays in and
 results out once, the scene tables read once) over 3.35 TB/s and the
@@ -213,11 +236,10 @@ def log(*a):
 
 
 def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
+    """The card's name and power limit, as nvidia-smi gives them."""
+    from bench_torch import device_line
+
+    return device_line("cuda")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -685,33 +707,33 @@ def _meshes(dev):
             (f"{dev} x 4", shrd.make_mesh(devices=[dev] * 4)))
 
 
-def phase_mesh(dev, bench, meshes=None):
-    """The bench frame through Renderer(mesh=...) on `meshes` (default
-    make_mesh(), every card of the machine, and a simulated 4-block mesh
-    of cuda:0), in turns with the single-device Renderer of the same seed:
-    packed frame and low-res colour bit-equal every frame, launches n times
-    the single-device ones, ms/frame, the gathers' bytes. Before it K1/K2
-    through wide.with_mesh on bench bounce lanes."""
+def _mesh_route(route, dev, bench, meshes, kscene, want):
+    """The bench frame of one route through Renderer(mesh=...) on `meshes`,
+    in turns with the single-device Renderer of the same seed: packed frame
+    and low-res colour bit-equal every frame, launches `want(n)` a frame.
+    `kscene` (None: the Renderer's own wide tables) is set as `r.wscene`
+    on every Renderer, unmeshed: the mesh Renderers attach their mesh to it
+    once. Returns (launches of the timed frames, ms/frame by arm, the
+    gathers' bytes of each arm's last frame, the internal pixel count)."""
     from ilgpu_raytracing_tpu_torch.config import RenderConfig
     from ilgpu_raytracing_tpu_torch.models.cornell import cornell_camera
-    from ilgpu_raytracing_tpu_torch.ops.cuda import wide
     from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
     from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
 
-    meshes = meshes or _meshes(dev)
-    total = _ray_split("K1/K2 bench bounce lanes", wide, bench["ws"], bench["bo"],
-                       bench["bd"], bench["act"], meshes)
     arms = (("single device", None),) + meshes
     rs = []
     for _, mesh in arms:
         r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3), bench["scene"],
                      cornell_camera(1920, 1080), mesh=mesh, device=dev)
         r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+        if kscene is not None:
+            r.wscene = kscene
         rs.append(r)
     check(len({(r.in_w, r.in_h) for r in rs}) == 1, "mesh internal resolution differs")
-    in_n = rs[0].in_w * rs[0].in_h
     frame_ms = {label: [] for label, _ in arms}
     gathers = {}
+    total = {}
+    meshed = {}
     for f in range(1 + MESH_FRAMES):
         ref = None
         for (label, mesh), r in zip(arms, rs):
@@ -724,95 +746,113 @@ def phase_mesh(dev, bench, meshes=None):
             torch.cuda.synchronize()
             ms = (time.monotonic() - t0) * 1e3
             counts = _read_counts()
-            check(counts == _want(wide_closest=3 * n, wide_shadow=5 * n, sortpos=6 * n),
-                  f"mesh {label} frame {f} launch counts {counts}")
+            check(counts == want(n), f"mesh {route} {label} frame {f} launch counts {counts}")
             color = r._last_aux["color"]
             if ref is None:
                 ref = (packed, color)
             else:
                 dc = (color - ref[1]).abs()
                 check(torch.equal(packed, ref[0]) and torch.equal(color, ref[1]),
-                      f"mesh {label} frame {f} differs from the single-device frame: "
-                      f"{int((packed != ref[0]).sum())} packed pixels, "
+                      f"mesh {route} {label} frame {f} differs from the single-device "
+                      f"frame: {int((packed != ref[0]).sum())} packed pixels, "
                       f"{int((dc > 0).any(dim=1).sum())} colour pixels (max abs "
                       f"{float(dc.max()):.3e})")
+                # the caller's unmeshed scene gets its mesh once, not every frame
+                ks = r._frame_kscene()
+                check(ks.mesh is mesh and meshed.setdefault(label, ks) is ks,
+                      f"mesh {route} {label} frame {f}: the kernel scene was re-meshed")
             gathers[label] = dict(shrd.GATHER_BYTES)
             if f:
                 frame_ms[label].append(ms)
                 total = {k: total.get(k, 0) + v for k, v in counts.items()}
-    log(f"mesh frames: packed frame and aux color bit-equal to the single-device "
-        f"Renderer on all {1 + MESH_FRAMES} frames of each mesh; launches per frame "
-        f"K1 3n, K2 5n, K3 6n")
-    log(f"mesh frame ms in turns ({smi_line()}), {MESH_FRAMES} frames after a warm-up: "
-        + "; ".join(f"{label} {[round(x, 3) for x in v]} (mean {np.mean(v):.3f})"
-                    for label, v in frame_ms.items()))
-    for label, mesh in meshes:
-        per_device = (mesh.size - 1) / mesh.size * 109 * in_n
-        log(f"mesh {label} gathers a frame: {gathers[label]['copied']} B copied, "
-            f"{gathers[label]['moved']} B moved between devices; a mesh of "
-            f"{mesh.size} distinct devices would move {per_device:.0f} B to each "
-            f"((n-1)/n x 109 B/px x {in_n} px: G-buffer 49, reservoirs 48, packed "
-            f"low-res + object ids 12)")
+    return total, frame_ms, gathers, rs[0].in_w * rs[0].in_h
+
+
+def phase_mesh(dev, bench, meshes=None):
+    """The bench frame through Renderer(mesh=...) on `meshes` (default
+    make_mesh(), every card of the machine, and a simulated 4-block mesh
+    of cuda:0), in turns with the single-device Renderer of the same seed:
+    packed frame and low-res colour bit-equal every frame, launches n times
+    the single-device ones, ms/frame, the gathers' bytes; on the wide route
+    (K1/K2/K3) and on the binary route (K6/K3, a caller's BinaryScene).
+    Before it K1/K2 through wide.with_mesh on bench bounce lanes."""
+    from ilgpu_raytracing_tpu_torch.ops.cuda import binary, wide
+
+    meshes = meshes or _meshes(dev)
+    total = _ray_split("K1/K2 bench bounce lanes", wide, bench["ws"], bench["bo"],
+                       bench["bd"], bench["act"], meshes)
+    t0 = time.monotonic()
+    bs = binary.prepare_binary(bench["scene"])
+    prep_s = time.monotonic() - t0
+    for route, kscene, want in (
+            ("wide", None, lambda n: _want(wide_closest=3 * n, wide_shadow=5 * n,
+                                           sortpos=6 * n)),
+            ("binary", bs, lambda n: _want(binary_closest=3 * n, binary_shadow=5 * n,
+                                           sortpos=6 * n))):
+        counts, frame_ms, gathers, in_n = _mesh_route(route, dev, bench, meshes, kscene, want)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        kernels = "K1 3n, K2 5n, K3 6n" if kscene is None else "K6 3n + 5n, K3 6n"
+        log(f"mesh frames, {route} route: packed frame and aux color bit-equal to the "
+            f"single-device Renderer on all {1 + MESH_FRAMES} frames of each mesh; "
+            f"launches per frame {kernels}"
+            + ("" if kscene is None else f"; BinaryScene prepared once in {prep_s:.3f} s "
+               f"and meshed once by each mesh Renderer"))
+        log(f"mesh frame ms in turns, {route} route ({smi_line()}), {MESH_FRAMES} frames "
+            f"after a warm-up: "
+            + "; ".join(f"{label} {[round(x, 3) for x in v]} (mean {np.mean(v):.3f})"
+                        for label, v in frame_ms.items()))
+        for label, mesh in meshes:
+            per_device = (mesh.size - 1) / mesh.size * 109 * in_n
+            log(f"mesh {label}, {route} route, gathers a frame: "
+                f"{gathers[label]['copied']} B copied, {gathers[label]['moved']} B moved "
+                f"between devices; a mesh of {mesh.size} distinct devices would move "
+                f"{per_device:.0f} B to each ((n-1)/n x 109 B/px x {in_n} px: G-buffer "
+                f"49, reservoirs 48, packed low-res + object ids 12)")
     return total
 
 
+def _example(name):
+    """examples/<name>.py of this checkout, loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_config1_parity(dev):
-    """BASELINE config 1 (examples/parity_check.py): the default sphere
-    scene at PARITY_SIZE^2, spp 1, max_depth 1, reuse off, over
-    PARITY_SEEDS noise seeds, the kernels on the card against the plain
-    versions on the CPU: the RMSE of the per-pixel means over the 95% of
-    pixels away from discrete-decision boundaries within 1.5x the
-    Monte-Carlo floor (parity_check.py:94-112). Both sides draw the same
-    seeds, so the per-pixel means are also held to the 64x64
-    card-vs-CPU bar: mean |diff| < 0.02 and under 1% of pixels off by
-    more than 0.1."""
-    from ilgpu_raytracing_tpu_torch.config import RenderConfig
-    from ilgpu_raytracing_tpu_torch.models.camera import Camera
-    from ilgpu_raytracing_tpu_torch.models.scene import build_default_scene
-    from ilgpu_raytracing_tpu_torch.ops import integrator, sky
-    from ilgpu_raytracing_tpu_torch.ops.cuda import wide
-    from ilgpu_raytracing_tpu_torch.ops.restir import Reservoirs
-
-    size = PARITY_SIZE
-    cfg = RenderConfig(spp=1, max_depth=1, rng_lock_noise=1,
-                       enable_temporal_reuse=False, enable_spatial_reuse=False)
-    sun = sky.sun_direction(cfg.sun_azimuth, cfg.sun_elevation)
-    cam = Camera.create(size, size, 60.0)
-    n = size * size
-
-    def mean_var(device):
-        t0 = time.monotonic()
-        _, scene = build_default_scene(device=device)
-        ks = wide.prepare_scene(scene)
-        acc = np.zeros((n, 3), np.float64)
-        sq = np.zeros((n, 3), np.float64)
-        with torch.inference_mode():
-            gb = integrator.primary_visibility(scene, cam, size, size, cfg.chunk_pixels, ks)
-            for s in range(PARITY_SEEDS):
-                c = integrator.path_trace(
-                    scene, gb, cam, cam, Reservoirs.empty(n, device),
-                    Reservoirs.empty(n, device), 0, (s * 2654435761 & 0xFFFFFFFF) | 1,
-                    sun, cfg, size, size, ks)[0].double().cpu().numpy()
-                acc += c
-                sq += c * c
-        mean = acc / PARITY_SEEDS
-        return mean, np.maximum(sq / PARITY_SEEDS - mean ** 2, 0.0), time.monotonic() - t0
-
-    mean_a, var_a, s_cpu = mean_var(torch.device("cpu"))
-    mean_b, var_b, s_card = mean_var(dev)
+    """BASELINE config 1 through examples/torch_parity_check.py's
+    `mean_var` and `compare`: the default sphere scene at PARITY_SIZE^2,
+    spp 1, max_depth 1, reuse off, over PARITY_SEEDS noise seeds, the
+    kernels on the card against the plain versions on the CPU: the RMSE of
+    the per-pixel means over the 95% of pixels away from discrete-decision
+    boundaries within 1.5x the Monte-Carlo floor (`within_noise_floor`).
+    Both sides draw the same seeds, so the per-pixel means are also held to
+    the 64x64 card-vs-CPU bar: mean |diff| < 0.02 and under 1% of pixels
+    off by more than 0.1."""
+    parity = _example("torch_parity_check")
+    shape = (PARITY_SIZE, 1, 1, PARITY_SEEDS)
+    t0 = time.monotonic()
+    mean_a, var_a = parity.mean_var(torch.device("cpu"), *shape)
+    s_cpu = time.monotonic() - t0
+    t0 = time.monotonic()
+    mean_b, var_b = parity.mean_var(dev, *shape)
+    s_card = time.monotonic() - t0
     check(np.isfinite(mean_b).all(), "config 1 means on the card are not finite")
-    err2 = ((mean_a - mean_b) ** 2).mean(axis=1)
-    robust = float(np.sqrt(np.sort(err2)[:int(n * 0.95)].mean()))
-    floor = float(np.sqrt(np.mean((var_a + var_b) / PARITY_SEEDS)))
+    res = parity.compare(mean_a, var_a, mean_b, var_b, *shape)
     diff = np.abs(mean_a - mean_b)
     frac = float((diff.max(axis=1) > 0.1).mean())
-    log(f"parity config 1 ({size}x{size}, spp 1, depth 1, {PARITY_SEEDS} seeds; card "
-        f"{s_card:.1f} s, CPU plain versions {s_cpu:.1f} s): rmse_of_means "
-        f"{np.sqrt(err2.mean()):.6f}, rmse_robust_p95 {robust:.6f}, noise_floor "
-        f"{floor:.6f}, robust/floor {robust / floor:.4f}, mean |diff| of the means "
-        f"{diff.mean():.6f}, pixels > 0.1: {frac:.5%}, signal_rms "
-        f"{float(np.sqrt(np.mean(mean_a ** 2))):.6f}")
-    check(robust <= 1.5 * floor, f"config 1 parity: {robust:.6f} > 1.5 x {floor:.6f}")
+    log(f"parity config 1 ({PARITY_SIZE}x{PARITY_SIZE}, spp 1, depth 1, {PARITY_SEEDS} "
+        f"seeds; card {s_card:.1f} s, CPU plain versions {s_cpu:.1f} s): rmse_of_means "
+        f"{res['rmse_of_means']:.6f}, rmse_robust_p95 {res['rmse_robust_p95']:.6f}, "
+        f"noise_floor {res['noise_floor']:.6f}, robust/floor "
+        f"{res['robust_over_floor']:.4f}, mean |diff| of the means {diff.mean():.6f}, "
+        f"pixels > 0.1: {frac:.5%}, signal_rms {res['signal_rms']:.6f}")
+    check(res["within_noise_floor"], f"config 1 parity: {res['rmse_robust_p95']:.6f} > "
+          f"1.5 x {res['noise_floor']:.6f}")
     # both sides draw the same seeds through the same code, so the means
     # are also held per pixel, to the 64x64 card-vs-CPU bar (`_parity`)
     check(diff.mean() < 0.02, f"config 1 parity: mean |diff| of the means {diff.mean():.5f}")
@@ -1877,6 +1917,141 @@ def phase_session(dev):
     return launches
 
 
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "vs_baseline_effective", "detail"}
+BENCH_DETAIL_KEYS = {"fps_1080p_presented", "mrays_effective", "window_s",
+                     "rays_dispatched_per_frame", "rays_effective_per_frame",
+                     "internal_res", "tris", "spp", "max_depth", "frames", "device"}
+
+
+def phase_bench_torch(dev):
+    """`bench_torch.run` at its full size (the 1080p bench frame, one
+    warm-up and 3 windows of 6 frames, each frame copied to the host): its
+    JSON line, its fields, and K1 3, K2 5, K3 6 launches a frame over every
+    frame it renders."""
+    import bench_torch
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    res = bench_torch.run(dev)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    print(json.dumps(res), flush=True)
+    det = res["detail"]
+    frames = 1 + len(det["window_s"]) * det["frames"]  # the warm-up too
+    check(set(res) == BENCH_KEYS and set(det) == BENCH_DETAIL_KEYS,
+          f"bench_torch keys {sorted(res)} / {sorted(det)}")
+    check(res["metric"] == "mrays_per_sec_1080p_cornell_path_trace"
+          and res["unit"] == "Mrays/s/chip", f"bench_torch metric {res['metric']}")
+    check(det["rays_dispatched_per_frame"] == 11_714_560 and det["internal_res"] == [1280, 704]
+          and det["tris"] == 15_552 and len(det["window_s"]) == 3 and det["frames"] == 6,
+          f"bench_torch detail {det}")
+    check(det["device"] == smi_line(), f"bench_torch device {det['device']!r}")
+    check(np.isfinite(res["value"]) and res["value"] > 0
+          and 0 < det["rays_effective_per_frame"] <= det["rays_dispatched_per_frame"],
+          f"bench_torch value {res['value']}, effective {det['rays_effective_per_frame']}")
+    check(launches == _want(wide_closest=3 * frames, wide_shadow=5 * frames,
+                            sortpos=6 * frames),
+          f"bench_torch launch counts {launches} over {frames} frames")
+    # the frame copy alone: bench_torch copies each packed 1080p frame (int64)
+    # to pageable host memory, on the frame's stream
+    packed = torch.zeros((1920 * 1080,), dtype=torch.int64, device=dev)
+    copy_ms = cuda_ms(lambda: packed.cpu(), 10)
+    log(f"bench_torch: {res['value']} Mrays/s dispatched, windows {det['window_s']} s, "
+        f"launches per frame K1 3, K2 5, K3 6 over {frames} frames; the frame copy "
+        f"({packed.numel() * 8} B to pageable memory) alone {copy_ms:.4f} ms, "
+        f"{copy_ms / (min(det['window_s']) * 1e3 / det['frames']):.2%} of the "
+        f"minimum window's frame")
+    return launches
+
+
+def _check_png(path: str, w: int, h: int) -> None:
+    from PIL import Image  # the port's save_png writes through PIL
+
+    img = np.asarray(Image.open(path).convert("RGB"))
+    check(img.shape == (h, w, 3), f"{path}: shape {img.shape}, want {(h, w, 3)}")
+    check(len(np.unique(img.reshape(-1, 3), axis=0)) > 1, f"{path} is blank")
+
+
+def phase_examples(dev):
+    """Each examples/torch_*.py `main` on the card at small sizes, its
+    output captured and printed, the launches of each run counted from 0:
+    PNGs exist, have the asked size and more than one colour;
+    torch_large_mesh's 262,144-triangle terrain takes the StreamScene route
+    and launches K4 and K5; torch_parity_check's line is within the noise
+    floor; torch_fly without a display returns 1 with its message."""
+    import io
+
+    total = {}
+    d = "--device", str(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        def png(name):
+            return os.path.join(tmp, name)
+
+        runs = [
+            ("torch_render_default", [*d, "--width", "256", "--height", "256",
+                                      "--frames", "2", "--out", png("default.png")]),
+            *[("torch_render_cornell", [*d, "--width", "320", "--height", "240",
+                                        "--frames", "2", "--bvh", bvh,
+                                        "--out", png(f"cornell_{bvh}.png")])
+              for bvh in ("sah", "median", "lbvh")],
+            ("torch_animate", [*d, "--width", "160", "--height", "120", "--frames", "3",
+                               "--outdir", png("anim")]),
+            ("torch_large_mesh", [*d, "--width", "640", "--height", "360", "--frames", "2",
+                                  "--grid-x", "512", "--grid-z", "256",
+                                  "--out", png("terrain.png")]),
+            ("torch_sponza_like", [*d, "--width", "320", "--height", "180", "--frames", "2",
+                                   "--out", png("sponza.png")]),
+            ("torch_parity_check", [*d, "--size", "128", "--seeds", "4"]),
+            ("torch_fly", [*d]),
+        ]
+        for name, argv in runs:
+            mod = _example(name)
+            display = os.environ.pop("DISPLAY", None) if name == "torch_fly" else None
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.monotonic()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    rc = mod.main(argv)
+            finally:
+                if display is not None:
+                    os.environ["DISPLAY"] = display
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            counts = _read_counts()
+            out = buf.getvalue()
+            for line in out.splitlines():
+                log(f"  {name}: {line}")
+            log(f"example {name} {' '.join(argv)}: rc {rc}, {secs:.2f} s, launches "
+                f"{({k: v for k, v in counts.items() if v})}")
+            if name == "torch_fly":
+                check(rc == 1 and "no display available" in out,
+                      f"torch_fly without a display: rc {rc}, {out!r}")
+                check(not any(counts.values()), "torch_fly launched a kernel")
+                continue
+            check(rc == 0, f"{name} returned {rc}")
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            if name == "torch_parity_check":
+                res = json.loads(out.strip().splitlines()[-1])
+                check(res["within_noise_floor"], f"torch_parity_check: {res}")
+                continue
+            check(counts["sortpos"] > 0, f"{name}: K3 not launched")
+            if name == "torch_large_mesh":
+                check("tracer: StreamScene" in out and counts["stream_closest"] > 0
+                      and counts["stream_shadow"] > 0 and counts["wide_closest"] == 0,
+                      f"torch_large_mesh did not take the streaming route: {counts}")
+            else:
+                check(counts["wide_closest"] > 0, f"{name}: K1 not launched")
+            w, h = int(argv[argv.index("--width") + 1]), int(argv[argv.index("--height") + 1])
+            if name == "torch_animate":
+                for f in range(int(argv[argv.index("--frames") + 1])):
+                    _check_png(os.path.join(png("anim"), f"frame_{f:03d}.png"), w, h)
+            else:
+                _check_png(argv[argv.index("--out") + 1], w, h)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1907,6 +2082,7 @@ def main() -> int:
     timed("other scenes", phase_other_scenes, dev)
     timed("Cornell parity", phase_parity, dev)
     cornell_counts = timed("Cornell main path", phase_main_path, dev, bench)
+    bench_counts = timed("bench_torch", phase_bench_torch, dev)
     mesh_counts = timed("mesh", phase_mesh, dev, bench)
     timed("parity", phase_config1_parity, dev)
     timed("K6", phase_k6, dev, results, bench)
@@ -1931,6 +2107,8 @@ def main() -> int:
     del ss, lanes
     timed("terrain parity", phase_terrain_parity, dev)
     terrain_counts = timed("terrain main path", phase_terrain_main, dev, terrain)
+    del terrain
+    example_counts = timed("examples", phase_examples, dev)
 
     pallas = "ilgpu_raytracing_tpu/ops/pallas/"
     csrc = "ilgpu_raytracing_tpu_torch/csrc/"
@@ -1978,7 +2156,7 @@ def main() -> int:
     # kernel that reaches this line met it.
     paths = (cornell_counts, k6_counts, k7_counts, court_counts, terrain_counts,
              k8_counts, settings_counts, config4_counts, session_counts, mesh_counts,
-             split_counts)
+             split_counts, bench_counts, example_counts)
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=sum(c[name] for c in paths), bar=bar, result="met",

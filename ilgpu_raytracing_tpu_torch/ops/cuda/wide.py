@@ -609,12 +609,19 @@ def with_mesh(ks, mesh):
     """Attach a device mesh to a WideScene (or StreamScene): its traces
     split their rays over mesh axis "px", block k traced on
     `mesh.devices[k]` against a replica of the tables there (one copy on
-    each distinct device). The mesh's devices must be of the tables' type:
-    no block moves between the card and the CPU."""
+    each distinct device)."""
+    return attach_mesh(ks, mesh, ks.wide_child.device)
+
+
+def attach_mesh(ks, mesh, device):
+    """A copy of the kernel scene `ks`, whose tables lie on `device`, with
+    `mesh` and `replicas` set: one copy of the tables (with no mesh) on each
+    distinct device of the mesh. The mesh's devices must be of the tables'
+    type: no block moves between the card and the CPU."""
     kinds = {d.type for d in mesh.devices}
-    if kinds != {ks.wide_child.device.type}:
+    if kinds != {device.type}:
         raise ValueError(f"with_mesh: a mesh of {sorted(kinds)} devices for tables "
-                         f"on {ks.wide_child.device}")
+                         f"on {device}")
     plain = copy.copy(ks)
     plain.mesh = plain.replicas = None
     out = copy.copy(plain)

@@ -25,9 +25,11 @@ pixel counts divide the mesh, the FrameState is sharded and the scene and
 its kernel tables replicated (`with_mesh`), and device k runs the whole
 frame step for its own contiguous pixel block after gathering the
 full-image G-buffer, `res_prev` and packed low-res frame that ReSTIR's
-and TAAU's taps read. The frame equals the single-device frame bit for
-bit. The renderer runs on the mesh's devices; an explicit `device=` that
-disagrees with them raises.
+and TAAU's taps read. A kernel scene the caller sets without a mesh
+(`r.wscene = binary.prepare_binary(r.scene)`) is replicated once, when
+the first frame after the assignment renders. The frame equals the
+single-device frame bit for bit. The renderer runs on the mesh's devices;
+an explicit `device=` that disagrees with them raises.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from ilgpu_raytracing_tpu_torch.config import RenderConfig
 from ilgpu_raytracing_tpu_torch.models.camera import Camera
 from ilgpu_raytracing_tpu_torch.models.scene import SceneData, build_default_scene
 from ilgpu_raytracing_tpu_torch.ops import integrator, sky, taa, tonemap, upsample
+from ilgpu_raytracing_tpu_torch.ops.cuda import binary as binary_mod
 from ilgpu_raytracing_tpu_torch.ops.cuda import stream as stream_mod
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide as wide_mod
 from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
@@ -109,11 +112,17 @@ def _upsample(low_packed, obj_id, taa_color, taa_obj, taa_valid: bool,
 
 def _block_kscene(kscene, k: int):
     """Device k's kernel scene: its replica when the scene carries a mesh
-    (`with_mesh`), the scene itself otherwise (the plain tracer's None, or
-    a caller's BinaryScene: K6 has no mesh split)."""
+    (`with_mesh`), the scene itself otherwise (the plain tracer's None)."""
     if getattr(kscene, "mesh", None) is None:
         return kscene
     return kscene.replicas.copies[k]
+
+
+def _tables_device(kscene):
+    """The device of a kernel scene's tables (None for the plain tracer)."""
+    if kscene is None:
+        return None
+    return next(v.device for v in vars(kscene).values() if isinstance(v, torch.Tensor))
 
 
 def render_frame_mesh(mesh: shrd.Mesh, scenes: shrd.Replicated, camera,
@@ -129,11 +138,20 @@ def render_frame_mesh(mesh: shrd.Mesh, scenes: shrd.Replicated, camera,
     (`shard_state`). The blocks' launches are issued device after device
     from this one thread, each under its device's CUDA scope. Returns
     (packed_out, the new sharded state, aux), the frame and aux gathered
-    onto `device` and equal to `render_frame`'s bit for bit."""
+    onto `device` and equal to `render_frame`'s bit for bit. A scene or
+    kernel scene that does not lie on its block's device raises
+    ValueError before any block launches."""
     device = mesh.devices[0] if device is None else device
     low = shrd.block_slices(in_w * in_h, mesh)
     out = shrd.block_slices(out_w * out_h, mesh)
     kscenes = [_block_kscene(wscene, k) for k in range(mesh.size)]
+    for k, dev in enumerate(mesh.devices):
+        for what, on in (("scene", scenes.copies[k].device),
+                         ("kernel scene", _tables_device(kscenes[k]))):
+            if on not in (None, dev):
+                raise ValueError(
+                    f"render_frame_mesh: block {k}'s {what} lies on {on}, the block "
+                    f"on {dev}; replicate it onto the mesh (with_mesh)")
 
     def per_block(fn):
         """fn(k, device k) for every block, on device k."""
@@ -206,6 +224,7 @@ class Renderer:
                 single_instance=True, device=self.device,
             )
         self.wscene = None
+        self._meshed = (None, None)  # (a caller's kernel scene, it with the mesh)
         self.set_scene(scene)
         self.out_w, self.out_h = out_w, out_h
         self.in_w, self.in_h = self._internal_resolution(out_w, out_h)
@@ -272,6 +291,19 @@ class Renderer:
             if self.wscene is not None:
                 self.wscene = wide_mod.with_mesh(self.wscene, self.mesh)
 
+    def _frame_kscene(self):
+        """The kernel scene the frame traces: `wscene`, or under a mesh, when
+        the caller set one without a mesh (`r.wscene =
+        binary.prepare_binary(r.scene)`), that scene with the mesh attached,
+        made once and kept while `wscene` is the same object."""
+        ks = self.wscene
+        if self.mesh is None or ks is None or ks.mesh is not None:
+            return ks
+        if self._meshed[0] is not ks:
+            mod = binary_mod if isinstance(ks, binary_mod.BinaryScene) else wide_mod
+            self._meshed = (ks, mod.with_mesh(ks, self.mesh))
+        return self._meshed[1]
+
     def _internal_resolution(self, out_w: int, out_h: int) -> tuple[int, int]:
         """The config's internal resolution; under a mesh snapped so the
         internal pixel count divides it, and the output pixel count must
@@ -332,7 +364,7 @@ class Renderer:
         state = self.state.swapped_reservoirs() if self.frame > 0 else self.state
         args = (self.camera, self.prev_camera, state, self.frame, noise_key,
                 sun_dir, self._camera_moved, self.cfg, self.in_w, self.in_h,
-                self.out_w, self.out_h, self.tonemap_name, self.wscene)
+                self.out_w, self.out_h, self.tonemap_name, self._frame_kscene())
         if self.mesh is None:
             packed, new_state, aux = render_frame(self.scene, *args)
         else:

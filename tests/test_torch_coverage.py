@@ -13,6 +13,13 @@ the same path in the port. Two explicit lists hold the exceptions:
 
 So "what is left" is something the suite checks, not a hand count. The
 names are read with `ast`, so no module is imported.
+
+The entry points are covered the same way: `bench.py` has `bench_torch.py`
+and each `examples/X.py` has `examples/torch_X.py`, with the JAX script's
+argparse flags (the examples add `--device`; FLAG_EXCEPTIONS lists the
+flags left out, with the reason). No file of the port (the package,
+`chip_smoke.py`, `bench_torch.py`, `examples/torch_*.py`, `tools/torch_*.py`)
+imports jax or the JAX package.
 """
 
 import ast
@@ -104,3 +111,73 @@ def test_exception_lists_are_current():
         package = os.path.dirname(module) or module
         assert package + "/" in items.get(item, ""), (
             f"ROADMAP Queue 1 item {item} does not name {module}")
+
+
+# ---------------------------------------------------------------- entry points
+
+ENTRY_POINTS = {"bench.py": "bench_torch.py", **{
+    f"examples/{f}": f"examples/torch_{f}"
+    for f in sorted(os.listdir(os.path.join(REPO, "examples")))
+    if f.endswith(".py") and not f.startswith("torch_")}}
+
+# flags of a JAX entry point that its port leaves out
+FLAG_EXCEPTIONS = {
+    "examples/render_cornell.py": {
+        "--pallas": "on the card the port always traces with its kernels (the "
+                    "Renderer refuses the plain walk on CUDA), on the CPU with "
+                    "their plain versions",
+    },
+}
+ADDED_FLAGS = {"bench.py": set()}  # every example adds --device
+
+
+def _flags(path: str) -> set[str]:
+    """The option strings of every `add_argument` call in the file."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {a.value for node in ast.walk(tree)
+            if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
+            for a in node.args if isinstance(a, ast.Constant) and a.value.startswith("-")}
+
+
+def test_entry_points_are_listed():
+    assert len(ENTRY_POINTS) == 8  # bench.py and the seven examples
+    for jax_entry, names in FLAG_EXCEPTIONS.items():
+        assert set(names) <= _flags(os.path.join(REPO, jax_entry)), jax_entry
+
+
+@pytest.mark.parametrize("jax_entry", sorted(ENTRY_POINTS))
+def test_port_has_every_entry_point(jax_entry):
+    port_path = os.path.join(REPO, ENTRY_POINTS[jax_entry])
+    assert os.path.exists(port_path), f"the port has no {ENTRY_POINTS[jax_entry]}"
+    want = (_flags(os.path.join(REPO, jax_entry)) - set(FLAG_EXCEPTIONS.get(jax_entry, {}))
+            | ADDED_FLAGS.get(jax_entry, {"--device"}))
+    assert _flags(port_path) == want
+
+
+def _port_files() -> list[str]:
+    out = ["chip_smoke.py", "bench_torch.py"]
+    out += [f"examples/{f}" for f in sorted(os.listdir(os.path.join(REPO, "examples")))
+            if f.startswith("torch_") and f.endswith(".py")]
+    out += [f"tools/{f}" for f in sorted(os.listdir(os.path.join(REPO, "tools")))
+            if f.startswith("torch_") and f.endswith(".py")]
+    for root, dirs, files in os.walk(PORT_PKG):
+        dirs[:] = sorted(d for d in dirs if not d.startswith(("_", ".")))
+        out += [os.path.relpath(os.path.join(root, f), REPO)
+                for f in sorted(files) if f.endswith(".py")]
+    return out
+
+
+@pytest.mark.parametrize("path", _port_files())
+def test_port_file_imports_no_jax(path):
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            names.add(node.module)
+    bad = sorted(n for n in names
+                 if n.split(".")[0] in ("jax", "jaxlib", "ilgpu_raytracing_tpu"))
+    assert not bad, f"{path} imports {bad}"

@@ -22,7 +22,12 @@ frame:
   next frame bit-equal;
 - the 8-block `path_trace` meets the golden bar against
   tests/goldens/cornell_64.npy, as test_torch_frame.py holds the
-  single-device path.
+  single-device path;
+- the binary route (K6) on a 4-block mesh: `binary.with_mesh`'s replicas
+  and its device-type refusal, a caller's BinaryScene under
+  `Renderer(mesh=...)` bit-equal to the single-device binary frame with
+  4x the K6 calls, and `render_frame_mesh` refusing a kernel scene off a
+  block's device before any K6 call.
 """
 
 import dataclasses
@@ -44,7 +49,7 @@ from ilgpu_raytracing_tpu_torch.models.sponza_like import (
     sponza_camera,
 )
 from ilgpu_raytracing_tpu_torch.ops import integrator, sky
-from ilgpu_raytracing_tpu_torch.ops.cuda import stream, wide
+from ilgpu_raytracing_tpu_torch.ops.cuda import binary, stream, wide
 from ilgpu_raytracing_tpu_torch.ops.restir import Reservoirs
 from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
 from ilgpu_raytracing_tpu_torch.runtime.framestate import FrameState
@@ -334,3 +339,106 @@ def test_block_split_path_trace_golden_bar(mesh, cornell):
             shrd.pixel_sharding(mesh), tuple(o[3] for o in out))
     assert np.isfinite(color).all()
     _golden_bar(color, np.load(_GOLDEN))
+
+
+# ---------------------------------------------------------------- binary route
+
+
+@pytest.fixture(scope="module")
+def mesh4():
+    return shrd.make_mesh(devices=[CPU] * 4)
+
+
+def _tensors(bs):
+    return {k: v for k, v in vars(bs).items() if isinstance(v, torch.Tensor)}
+
+
+def test_binary_with_mesh_replicates_without_a_ray_split(mesh4, cornell):
+    bs = binary.prepare_binary(cornell)
+    bm = binary.with_mesh(bs, mesh4)
+    assert bm.mesh is mesh4 and bs.mesh is None and bs.replicas is None
+    assert len(bm.replicas.copies) == 4
+    # a repeated device shares one replica, which carries no mesh
+    assert all(rep is bm.replicas.copies[0] and rep.mesh is None
+               for rep in bm.replicas.copies)
+    rep = bm.replicas.copies[0]
+    assert rep.meta == bs.meta and rep.depth == bs.depth
+    assert _tensors(rep).keys() == _tensors(bs).keys()
+    for k, v in _tensors(bs).items():
+        assert torch.equal(getattr(rep, k), v) and getattr(rep, k).device == CPU, k
+        assert getattr(bm, k) is v, k  # the meshed scene keeps its own tables
+    # no ray split: a direct trace on the meshed scene is the trace on bs
+    o, d, active = _rays(5)
+    r1 = binary.trace_closest_binary(bs, o, d, active=active)
+    r2 = binary.trace_closest_binary(bm, o, d, active=active)
+    assert int(r1.hit.sum()) > 100
+    for f in ("t", "prim", "inst", "bu", "bv"):
+        assert torch.equal(getattr(r1, f), getattr(r2, f)), f
+    assert torch.equal(binary.shadow_occlusion_binary(bs, o, d, 10.0, active=active),
+                       binary.shadow_occlusion_binary(bm, o, d, 10.0, active=active))
+    with pytest.raises(ValueError, match="with_mesh: a mesh of"):
+        binary.with_mesh(bs, shrd.Mesh((torch.device("cuda", 0),) * 4))
+
+
+def _count_k6(monkeypatch):
+    """Count the calls of the K6 wrappers that the frame makes."""
+    calls = {"closest": 0, "shadow": 0}
+    for name, key in (("trace_closest_binary", "closest"),
+                      ("shadow_occlusion_binary", "shadow")):
+        real = getattr(binary, name)
+
+        def spy(*args, _real=real, _key=key, **kw):
+            calls[_key] += 1
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(binary, name, spy)
+    return calls
+
+
+def test_mesh_renderer_binary_route(mesh4, cornell, monkeypatch):
+    """A caller's BinaryScene (`r.wscene = prepare_binary(r.scene)`) under
+    Renderer(mesh=...): the frames equal the single-device binary frames
+    bit for bit, each block calls K6 as often as the single device, and
+    the mesh is attached once, not every frame."""
+    calls = _count_k6(monkeypatch)
+    cfg = RenderConfig(**_BASE)
+    pair, per_frame = [], []
+    for m in (None, mesh4):
+        r = Renderer(64, 32, cfg, cornell, cornell_camera(64, 32), mesh=m, device="cpu")
+        bs = binary.prepare_binary(r.scene)
+        r.wscene = bs
+        meshed = []
+        for _ in range(2):
+            calls.update(closest=0, shadow=0)
+            r.render()
+            per_frame.append(dict(calls))
+            meshed.append(r._frame_kscene())
+        assert r.wscene is bs
+        if m is None:
+            assert meshed == [bs, bs]
+        else:
+            assert meshed[0] is meshed[1] and meshed[0].mesh is mesh4
+        pair.append(r)
+    _assert_same_frame(*pair)
+    single = per_frame[:2]
+    assert single[0]["closest"] > 0 and single[0]["shadow"] > 0
+    assert per_frame[2:] == [{k: 4 * v for k, v in f.items()} for f in single]
+
+
+def test_render_frame_mesh_refuses_a_kernel_scene_off_its_block(mesh4, cornell,
+                                                                monkeypatch):
+    """Block 1's replica on another device than block 1 (the meta device
+    stands in for a second card): ValueError before any block calls K6."""
+    calls = _count_k6(monkeypatch)
+    bm = binary.with_mesh(binary.prepare_binary(cornell), mesh4)
+    rep = bm.replicas.copies[0]
+    off = shrd.to_device(rep, "meta")
+    bad = dataclasses.replace(bm, replicas=shrd.Replicated(
+        bm.replicas.placement, (rep, off, off, off)))
+    r = Renderer(64, 32, RenderConfig(**_BASE), cornell, cornell_camera(64, 32),
+                 mesh=mesh4, device="cpu")
+    r.wscene = bad
+    with pytest.raises(ValueError, match="block 1's kernel scene lies on meta"):
+        r.render()
+    assert calls == {"closest": 0, "shadow": 0}
+    assert r.frame == 0

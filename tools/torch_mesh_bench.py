@@ -3,7 +3,10 @@
 of the machine, in turns with the single-device Renderer of the same seed
 (chip_smoke.py's `phase_mesh`, its bars included: frames bit-equal, K1/K2/K3
 launches n times the single-device ones, K1/K2 through `wide.with_mesh` on
-65,537 bench bounce lanes bit-equal to the unsharded calls).
+65,537 bench bounce lanes bit-equal to the unsharded calls), on the wide
+route and on the binary route (a caller's BinaryScene set as `r.wscene`,
+replicated onto each card once by the mesh Renderer: frames bit-equal, K6
+launches 3n + 5n and K3 6n a frame).
 
 Meshes: `make_mesh()` (all cards), and `cuda:0` repeated as many times (the
 simulated mesh: the same split and launches on one card). On one card
