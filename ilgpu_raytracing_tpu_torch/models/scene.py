@@ -28,6 +28,7 @@ from ilgpu_raytracing_tpu_torch.models.materials import (
     Material,
     materials_to_soa,
 )
+from ilgpu_raytracing_tpu_torch.utils import telemetry
 
 BLAS_SPHERE_SET = 1
 BLAS_TRI_MESH = 2
@@ -532,6 +533,7 @@ def build_default_scene(blas_leaf_size: int = 4, tlas_leaf_size: int = 2,
     return b, b.commit(device)
 
 
+@telemetry.spanned("refit")
 def refit_mesh_instance(builder: SceneBuilder, scene: SceneData, inst_index: int,
                         new_positions: np.ndarray) -> SceneData:
     """Per-frame BVH refit of an animated mesh instance (BASELINE config 4).
@@ -546,7 +548,9 @@ def refit_mesh_instance(builder: SceneBuilder, scene: SceneData, inst_index: int
     Reads `scene.blas_ifields` and `scene.tri_prim_idx` back to the host
     (a synchronizing copy from the card), as the JAX function does. The
     node sweep runs in the native scene core when it is built, else in
-    numpy (bvh.refit_bvh); both give the same bits."""
+    numpy (bvh.refit_bvh); both give the same bits. Spans (utils/telemetry.py):
+    `refit`, with `readback`, `refit_bvh`, `tlas` and `upload` inside, the
+    read-back's and the upload's host bytes as `bytes`."""
     from ilgpu_raytracing_tpu_torch import native as native_mod
 
     inst = builder.instances[inst_index]
@@ -568,46 +572,58 @@ def refit_mesh_instance(builder: SceneBuilder, scene: SceneData, inst_index: int
     # leaf `first` indexes the global tri_prim_idx, whose global tri ids map
     # back to this instance's prim rows
     root, count = inst.blas_root, inst.blas_node_count
-    nif = scene.blas_ifields[root: root + count].cpu().numpy().copy()
+    with telemetry.span("readback") as rb:
+        nif = scene.blas_ifields[root: root + count].cpu().numpy().copy()
+        leaf_order = scene.tri_prim_idx.cpu().numpy()
+        rb.add(bytes=nif.nbytes + leaf_order.nbytes)
     inner = nif[:, bvh_mod.LEFT] >= 0
     nif[inner, bvh_mod.LEFT] -= root
-    leaf_order_local = scene.tri_prim_idx.cpu().numpy() - inst.prim_first
-    refit = native_mod.refit_bvh(nif, leaf_order_local, pbmin, pbmax)
-    nb, nx = (bvh_mod.refit_bvh(nif, leaf_order_local, pbmin, pbmax)
-              if refit is None else refit)
+    leaf_order_local = leaf_order - inst.prim_first
+    with telemetry.span("refit_bvh"):
+        refit = native_mod.refit_bvh(nif, leaf_order_local, pbmin, pbmax)
+        nb, nx = (bvh_mod.refit_bvh(nif, leaf_order_local, pbmin, pbmax)
+                  if refit is None else refit)
 
-    inst.bmin, inst.bmax = transform_aabb(inst.o2w, pbmin.min(axis=0),
-                                          pbmax.max(axis=0))
-    # the TLAS is rebuilt on the builder's tlas_leaf_size, the bound that
-    # commit recorded as tlas_leaf_max, so the scene's metadata still holds
-    inst_bmin = np.stack([i.bmin for i in builder.instances])
-    inst_bmax = np.stack([i.bmax for i in builder.instances])
-    centroids = 0.5 * (inst_bmin + inst_bmax)
-    t_bmin, t_bmax, t_if, t_order = bvh_mod.build_skip_index_bvh(
-        inst_bmin, inst_bmax, centroids, builder.tlas_leaf_size
-    )
+    with telemetry.span("tlas"):
+        inst.bmin, inst.bmax = transform_aabb(inst.o2w, pbmin.min(axis=0),
+                                              pbmax.max(axis=0))
+        # the TLAS is rebuilt on the builder's tlas_leaf_size, the bound that
+        # commit recorded as tlas_leaf_max, so the scene's metadata still holds
+        inst_bmin = np.stack([i.bmin for i in builder.instances])
+        inst_bmax = np.stack([i.bmax for i in builder.instances])
+        centroids = 0.5 * (inst_bmin + inst_bmax)
+        t_bmin, t_bmax, t_if, t_order = bvh_mod.build_skip_index_bvh(
+            inst_bmin, inst_bmax, centroids, builder.tlas_leaf_size
+        )
 
     dev = scene.device
+    uploaded = 0
 
     def put(a, dtype=torch.float32):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+        nonlocal uploaded
+        x = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+        uploaded += x.numel() * x.element_size()
+        return x
 
     def patched(full, rows, new):
         out = full.clone()
         out[rows] = put(new)
         return out
 
-    return dataclasses.replace(
-        scene,
-        blas_bmin=patched(scene.blas_bmin, slice(root, root + count), nb),
-        blas_bmax=patched(scene.blas_bmax, slice(root, root + count), nx),
-        tri_v0=patched(scene.tri_v0, t_slice, v0),
-        tri_e1=patched(scene.tri_e1, t_slice, v1 - v0),
-        tri_e2=patched(scene.tri_e2, t_slice, v2 - v0),
-        inst_bmin=put(inst_bmin),
-        inst_bmax=put(inst_bmax),
-        tlas_bmin=put(t_bmin),
-        tlas_bmax=put(t_bmax),
-        tlas_ifields=put(t_if, torch.int32),
-        tlas_instance_indices=put(t_order, torch.int32),
-    )
+    with telemetry.span("upload") as up:
+        out = dataclasses.replace(
+            scene,
+            blas_bmin=patched(scene.blas_bmin, slice(root, root + count), nb),
+            blas_bmax=patched(scene.blas_bmax, slice(root, root + count), nx),
+            tri_v0=patched(scene.tri_v0, t_slice, v0),
+            tri_e1=patched(scene.tri_e1, t_slice, v1 - v0),
+            tri_e2=patched(scene.tri_e2, t_slice, v2 - v0),
+            inst_bmin=put(inst_bmin),
+            inst_bmax=put(inst_bmax),
+            tlas_bmin=put(t_bmin),
+            tlas_bmax=put(t_bmax),
+            tlas_ifields=put(t_if, torch.int32),
+            tlas_instance_indices=put(t_order, torch.int32),
+        )
+        up.add(bytes=uploaded)
+    return out

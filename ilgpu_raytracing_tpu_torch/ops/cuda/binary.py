@@ -36,13 +36,14 @@ from ilgpu_raytracing_tpu_torch.ops import cuda as cu
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide
 from ilgpu_raytracing_tpu_torch.ops.intersect import T_EPS, T_INF
 from ilgpu_raytracing_tpu_torch.ops.traverse import KIND_SPHERE, KIND_TRI, HitRecord
+from ilgpu_raytracing_tpu_torch.utils import telemetry
 
 LEAF_WIDTH = wide.LEAF_WIDTH
 TRI_SLOT = wide.TRI_STRIDE  # v0(3) e1(3) e2(3) prim_id pad(2)
 SPH_SLOT = wide.SPH_STRIDE  # center(3) radius prim_id pad(11)
 TRI_ID, SPH_ID = 9, 4  # the prim id's float in a triangle / sphere slot
 
-LAUNCHES = {"binary_closest": 0, "binary_shadow": 0}
+LAUNCHES = telemetry.counter("launches.binary", binary_closest=0, binary_shadow=0)
 
 
 @dataclasses.dataclass
@@ -447,9 +448,10 @@ def trace_binary_raw(bs: BinaryScene, o, d, t_max):
     prim, inst, bu, bv) with t = min(t_max, 1e30) and prim = inst = -1
     where nothing below t_max was hit."""
     wide._check_rays(bs.nodes.device, o, d, t_max, "binary trace")
-    if o.device.type == "cpu":
-        return trace_plain(bs, o, d, t_max)
-    return _launch(bs, o, d, t_max, any_hit=False)
+    with telemetry.kernel("binary_closest", o.shape[0]):
+        if o.device.type == "cpu":
+            return trace_plain(bs, o, d, t_max)
+        return _launch(bs, o, d, t_max, any_hit=False)
 
 
 def trace_closest_binary(bs: BinaryScene, o, d, active=None, t_max=None) -> HitRecord:
@@ -474,6 +476,7 @@ def shadow_occlusion_binary(bs: BinaryScene, o, d, t_max_world, active=None):
     `prim >= 0` of the closest walk under that t_max; bool (N,)."""
     t_max = wide._lane_t_max(o, t_max_world, active)
     wide._check_rays(bs.nodes.device, o, d, t_max, "binary trace")
-    if o.device.type == "cpu":
-        return shadow_plain(bs, o, d, t_max)
-    return _launch(bs, o, d, t_max, any_hit=True)[0]
+    with telemetry.kernel("binary_shadow", o.shape[0]):
+        if o.device.type == "cpu":
+            return shadow_plain(bs, o, d, t_max)
+        return _launch(bs, o, d, t_max, any_hit=True)[0]

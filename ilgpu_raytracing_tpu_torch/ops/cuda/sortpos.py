@@ -14,10 +14,11 @@ from __future__ import annotations
 import torch
 
 from ilgpu_raytracing_tpu_torch.ops import cuda as cu
+from ilgpu_raytracing_tpu_torch.utils import telemetry
 
 MAX_BINS = 384  # rank pass keeps 16 warps x bins counters in shared memory
 
-LAUNCHES = {"sortpos": 0}
+LAUNCHES = telemetry.counter("launches.sortpos", sortpos=0)
 
 _state: dict[str, object] = {}
 
@@ -58,10 +59,15 @@ def counting_pos(key: torch.Tensor, bins: int) -> torch.Tensor:
         )
     if not 1 <= bins <= MAX_BINS:
         raise ValueError(f"bins={bins} outside [1, {MAX_BINS}]")
-    if key.device.type == "cpu":
-        if key.numel() and (int(key.min()) < 0 or int(key.max()) >= bins):
-            raise ValueError(f"counting_pos: a key lies outside [0, {bins})")
-        return counting_pos_plain(key, bins)
+    with telemetry.kernel("sortpos", key.shape[0]):
+        if key.device.type == "cpu":
+            if key.numel() and (int(key.min()) < 0 or int(key.max()) >= bins):
+                raise ValueError(f"counting_pos: a key lies outside [0, {bins})")
+            return counting_pos_plain(key, bins)
+        return _launch(key, bins)
+
+
+def _launch(key: torch.Tensor, bins: int) -> torch.Tensor:
     if key.device.type != "cuda":
         raise ValueError(f"counting_pos: unsupported device {key.device}")
     lib, _ = library()

@@ -65,6 +65,7 @@ from ilgpu_raytracing_tpu_torch.ops.cuda.wide import (
 )
 from ilgpu_raytracing_tpu_torch.ops.cuda.wide import with_mesh as _wide_with_mesh
 from ilgpu_raytracing_tpu_torch.ops.traverse import HitRecord
+from ilgpu_raytracing_tpu_torch.utils import telemetry
 
 ROWS_PER_LEAF = 16  # up to 128 triangles per leaf
 _ENC_BASE = 32  # leaf encoding: 5 bits of row count (1..16), row index above
@@ -72,7 +73,7 @@ SPP_PRIM_BITS = 23  # packed record: prim id below, inst*4+kind above
 MAX_TRIS = 4_000_000
 TREELETS = 32  # boxes of the destination-treelet sort key
 
-LAUNCHES = {"stream_closest": 0, "stream_shadow": 0}
+LAUNCHES = telemetry.counter("launches.stream", stream_closest=0, stream_shadow=0)
 
 
 def with_mesh(ss: StreamScene, mesh) -> StreamScene:
@@ -148,6 +149,13 @@ def prepare_stream(scene: SceneData) -> StreamScene:
     """Repack a committed scene with coarse multi-row leaves
     (stream_kernel.prepare_stream); tables land on `scene`'s device. Build
     the scene with blas_leaf_size <= ROWS_PER_LEAF * 8 (128)."""
+    return stream_from_numpy(stream_tables(scene), scene)
+
+
+@telemetry.spanned("prepare")
+def stream_tables(scene: SceneData) -> dict:
+    """The host's part of `prepare_stream` (read-back, leaf packing, wide
+    collapse, quantized boxes, treelet cut): its numpy tables."""
     ifields = scene.blas_ifields.cpu().numpy().copy()
     bounds = np.concatenate(
         [scene.blas_bmin.cpu().numpy(), scene.blas_bmax.cpu().numpy()], axis=1
@@ -316,23 +324,20 @@ def prepare_stream(scene: SceneData) -> StreamScene:
         inst_w2o[inst_id] = np.asarray(w2o, np.float32)
 
     sph_table = np.stack(sph_rows) if sph_rows else np.zeros((1, _LANES), np.float32)
-    return stream_from_numpy(
-        dict(
-            wide_frame=wf_all.reshape(-1),
-            wide_qbounds=wq_all.reshape(-1),
-            wide_child=wc_all.reshape(-1),
-            wide_perm=perms.reshape(-1).astype(np.int32),
-            sortkey_bounds=cut_scene_treelets(scene, TREELETS),
-            tri_rows=tri,
-            sph_rows=sph_table,
-            tri_v0e=np.concatenate([tri_v0, tri_e1, tri_e2], axis=1),
-            inst_w2o=inst_w2o,
-            meta=tuple(meta),
-            rows_per_leaf=max_rows,
-            stack_cap=max(int(cap), 64),
-            needs_bary=_scene_needs_bary(scene),
-        ),
-        scene,
+    return dict(
+        wide_frame=wf_all.reshape(-1),
+        wide_qbounds=wq_all.reshape(-1),
+        wide_child=wc_all.reshape(-1),
+        wide_perm=perms.reshape(-1).astype(np.int32),
+        sortkey_bounds=cut_scene_treelets(scene, TREELETS),
+        tri_rows=tri,
+        sph_rows=sph_table,
+        tri_v0e=np.concatenate([tri_v0, tri_e1, tri_e2], axis=1),
+        inst_w2o=inst_w2o,
+        meta=tuple(meta),
+        rows_per_leaf=max_rows,
+        stack_cap=max(int(cap), 64),
+        needs_bary=_scene_needs_bary(scene),
     )
 
 
@@ -399,38 +404,44 @@ def stream_from_numpy(tables: dict, scene: SceneData) -> StreamScene:
     """StreamScene from the tables of a stream prep (this module's or the
     JAX package's `prepare_stream`, read out as numpy), on `scene`'s
     device."""
-    dev = scene.device
-    meta = tuple(
-        (int(k), int(r), tuple(float(v) for v in w2o), tuple(float(v) for v in wb),
-         int(i))
-        for k, r, w2o, wb, i in tables["meta"]
-    )
-    wc_all = np.asarray(tables["wide_child"], np.int32).reshape(-1, WIDTH)
-    inst_i, inst_f = _instance_tables(meta, dev)
+    with telemetry.span("upload") as up:
+        dev = scene.device
+        uploaded = 0
+        meta = tuple(
+            (int(k), int(r), tuple(float(v) for v in w2o), tuple(float(v) for v in wb),
+             int(i))
+            for k, r, w2o, wb, i in tables["meta"]
+        )
+        wc_all = np.asarray(tables["wide_child"], np.int32).reshape(-1, WIDTH)
+        inst_i, inst_f = _instance_tables(meta, dev)
 
-    def t(name, dtype):
-        return torch.as_tensor(np.array(tables[name]), dtype=dtype,
-                               device=dev).contiguous()
+        def t(name, dtype):
+            nonlocal uploaded
+            x = torch.as_tensor(np.array(tables[name]), dtype=dtype, device=dev).contiguous()
+            uploaded += x.numel() * x.element_size()
+            return x
 
-    return StreamScene(
-        wide_frame=t("wide_frame", torch.float32),
-        wide_qbounds=t("wide_qbounds", torch.int32),
-        wide_child=t("wide_child", torch.int32),
-        wide_perm=t("wide_perm", torch.int32),
-        tri_rows=t("tri_rows", torch.float32),
-        sph_rows=t("sph_rows", torch.float32),
-        tri_v0e=t("tri_v0e", torch.float32),
-        inst_w2o=t("inst_w2o", torch.float32),
-        sortkey_bounds=t("sortkey_bounds", torch.float32),
-        inst_i=inst_i,
-        inst_f=inst_f,
-        scene=dataclasses.replace(scene, has_alpha=False),
-        meta=meta,
-        rows_per_leaf=int(tables["rows_per_leaf"]),
-        stack_cap=int(tables["stack_cap"]),
-        wide_depth=_wide_depth(wc_all, [m[1] for m in meta]),
-        needs_bary=bool(tables["needs_bary"]),
-    )
+        ks = StreamScene(
+            wide_frame=t("wide_frame", torch.float32),
+            wide_qbounds=t("wide_qbounds", torch.int32),
+            wide_child=t("wide_child", torch.int32),
+            wide_perm=t("wide_perm", torch.int32),
+            tri_rows=t("tri_rows", torch.float32),
+            sph_rows=t("sph_rows", torch.float32),
+            tri_v0e=t("tri_v0e", torch.float32),
+            inst_w2o=t("inst_w2o", torch.float32),
+            sortkey_bounds=t("sortkey_bounds", torch.float32),
+            inst_i=inst_i,
+            inst_f=inst_f,
+            scene=dataclasses.replace(scene, has_alpha=False),
+            meta=meta,
+            rows_per_leaf=int(tables["rows_per_leaf"]),
+            stack_cap=int(tables["stack_cap"]),
+            wide_depth=_wide_depth(wc_all, [m[1] for m in meta]),
+            needs_bary=bool(tables["needs_bary"]),
+        )
+        up.add(bytes=uploaded)
+    return ks
 
 
 # ---------------------------------------------------------------- kernels
@@ -534,9 +545,10 @@ def trace_closest_stream_packed(ss: StreamScene, o, d, active=None, t_max=None):
     if ss.mesh is not None:
         return _shard_ray_op(ss, lambda rep, oo, dd, tm: trace_closest_stream_packed(
             rep, oo, dd, t_max=tm), o, d, t_max)
-    if o.device.type == "cpu":
-        return trace_closest_plain(ss, o, d, t_max)
-    return _launch(ss, o, d, t_max, any_hit=False)
+    with telemetry.kernel("stream_closest", o.shape[0]):
+        if o.device.type == "cpu":
+            return trace_closest_plain(ss, o, d, t_max)
+        return _launch(ss, o, d, t_max, any_hit=False)
 
 
 def shadow_occlusion_stream(ss: StreamScene, o, d, t_max_world, active=None):
@@ -545,9 +557,10 @@ def shadow_occlusion_stream(ss: StreamScene, o, d, t_max_world, active=None):
     _check_rays(ss.wide_child.device, o, d, t_max, "stream trace")
     if ss.mesh is not None:
         return _shard_ray_op(ss, shadow_occlusion_stream, o, d, t_max)
-    if o.device.type == "cpu":
-        return shadow_plain(ss, o, d, t_max)
-    return _launch(ss, o, d, t_max, any_hit=True)[0]
+    with telemetry.kernel("stream_shadow", o.shape[0]):
+        if o.device.type == "cpu":
+            return shadow_plain(ss, o, d, t_max)
+        return _launch(ss, o, d, t_max, any_hit=True)[0]
 
 
 def decode_stream_hits(ss: StreamScene, o, d, t, pp) -> HitRecord:

@@ -43,10 +43,11 @@ from ilgpu_raytracing_tpu_torch.ops.cuda.wide import (
     _wide_depth,
     check_walk_tables,
 )
+from ilgpu_raytracing_tpu_torch.utils import telemetry
 
 TILE_ROWS = 16  # packet = TILE_ROWS * 128 sorted lanes (the JAX default)
 
-LAUNCHES = {"streamtreelet": 0}
+LAUNCHES = telemetry.counter("launches.streamtreelet", streamtreelet=0)
 
 
 @dataclasses.dataclass
@@ -257,6 +258,7 @@ def run_treelet_stream_trace(sts: StreamTreeletScene, mask, o, d, t_max,
     -1 where this round found no hit below t_max."""
     wide._check_rays(sts.t_root.device, o, d, t_max, "stream treelet round")
     treelet._check_round(mask, o.shape[0], tile_rows, o.device)
-    if o.device.type == "cpu":
-        return round_plain(sts, mask, o, d, t_max, tile_rows)
-    return _launch(sts, mask, o, d, t_max, tile_rows)
+    with telemetry.kernel("streamtreelet", o.shape[0]):
+        if o.device.type == "cpu":
+            return round_plain(sts, mask, o, d, t_max, tile_rows)
+        return _launch(sts, mask, o, d, t_max, tile_rows)

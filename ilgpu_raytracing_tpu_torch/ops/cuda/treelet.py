@@ -48,12 +48,13 @@ from ilgpu_raytracing_tpu_torch.ops.cuda.wide import (
 )
 from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF
 from ilgpu_raytracing_tpu_torch.ops.traverse import KIND_SPHERE, KIND_TRI
+from ilgpu_raytracing_tpu_torch.utils import telemetry
 
 TILE_ROWS = 32  # packet = TILE_ROWS * 128 sorted lanes (the JAX default)
 LANES = 128
 MAX_TREELETS = 32  # the want mask is one i32
 
-LAUNCHES = {"treelet": 0}
+LAUNCHES = telemetry.counter("launches.treelet", treelet=0)
 
 
 @dataclasses.dataclass
@@ -548,6 +549,7 @@ def run_treelet_trace(ts: TreeletScene, mask, o, d, t_max, tile_rows: int = TILE
     round found no hit below t_max."""
     wide._check_rays(ts.t_root.device, o, d, t_max, "treelet round")
     _check_round(mask, o.shape[0], tile_rows, o.device)
-    if o.device.type == "cpu":
-        return round_plain(ts, mask, o, d, t_max, tile_rows)
-    return _launch(ts, mask, o, d, t_max, tile_rows)
+    with telemetry.kernel("treelet", o.shape[0]):
+        if o.device.type == "cpu":
+            return round_plain(ts, mask, o, d, t_max, tile_rows)
+        return _launch(ts, mask, o, d, t_max, tile_rows)

@@ -48,7 +48,7 @@ from ilgpu_raytracing_tpu_torch.ops import traverse
 from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF, intersect_triangle
 from ilgpu_raytracing_tpu_torch.ops.traverse import KIND_TRI, HitRecord
 from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
-from ilgpu_raytracing_tpu_torch.utils import vec
+from ilgpu_raytracing_tpu_torch.utils import telemetry, vec
 
 _LANES = 128
 TRI_STRIDE = 12  # v0(3) e1(3) e2(3) prim_id_f32 pad(2)
@@ -61,7 +61,7 @@ _Q_MASK_SHIFT = 24
 PP_PRIM_BITS = 20
 MAX_TRIS = 150_000
 
-LAUNCHES = {"wide_closest": 0, "wide_shadow": 0}
+LAUNCHES = telemetry.counter("launches.wide", wide_closest=0, wide_shadow=0)
 
 _IDENTITY = (1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0)
 
@@ -103,6 +103,7 @@ def _scene_needs_bary(scene: SceneData) -> bool:
     return bool((used >= 0).any())
 
 
+@telemetry.spanned("prepare")
 def prepare(scene: SceneData) -> PackedScene:
     """Repack a committed scene into leaf rows (traverse_kernel.prepare)."""
     ifields = scene.blas_ifields.cpu().numpy().copy()
@@ -341,6 +342,12 @@ def _check_encodings(wc_all, tri_v0e_rows, sph_rows, max_inst):
 def prepare_wide(pscene: PackedScene, scene: SceneData) -> WideScene:
     """Collapse each instance's binary subtree to 8-wide nodes
     (wide_kernel.prepare_wide); tables land on `scene`'s device."""
+    return wide_from_numpy(wide_tables(pscene), scene)
+
+
+@telemetry.spanned("prepare_wide")
+def wide_tables(pscene: PackedScene) -> dict:
+    """The host's 8-wide collapse of `prepare_wide`: its numpy tables."""
     ifl = np.asarray(pscene.node_ifields).reshape(-1, 4)
     bounds = np.asarray(pscene.nodes_rows)[:, 0:6]
     wide_bounds: list[np.ndarray] = []
@@ -414,57 +421,60 @@ def prepare_wide(pscene: PackedScene, scene: SceneData) -> WideScene:
         inst_w2o[inst_id] = np.asarray(w2o, np.float32)
     _check_encodings(wc_all, n_tbl, np.asarray(pscene.sph_rows), max_inst)
 
-    return wide_from_numpy(
-        dict(
-            wide_bounds=wb_all.reshape(-1),
-            wide_child=wc_all.reshape(-1),
-            wide_perm=perms.reshape(-1).astype(np.int32),
-            tri_rows=pscene.tri_rows,
-            sph_rows=pscene.sph_rows,
-            tri_v0e=tri_v0e,
-            inst_w2o=inst_w2o,
-            meta=tuple(meta),
-            stack_cap=max(int(cap), 64),
-            leaf_width=pscene.leaf_width,
-            needs_bary=pscene.needs_bary,
-        ),
-        scene,
+    return dict(
+        wide_bounds=wb_all.reshape(-1),
+        wide_child=wc_all.reshape(-1),
+        wide_perm=perms.reshape(-1).astype(np.int32),
+        tri_rows=pscene.tri_rows,
+        sph_rows=pscene.sph_rows,
+        tri_v0e=tri_v0e,
+        inst_w2o=inst_w2o,
+        meta=tuple(meta),
+        stack_cap=max(int(cap), 64),
+        leaf_width=pscene.leaf_width,
+        needs_bary=pscene.needs_bary,
     )
 
 
 def wide_from_numpy(tables: dict, scene: SceneData) -> WideScene:
     """WideScene from the tables of a wide prep (this module's or the JAX
     package's `prepare_wide`, read out as numpy), on `scene`'s device."""
-    dev = scene.device
-    meta = tuple(
-        (int(k), int(r), tuple(float(v) for v in w2o), tuple(float(v) for v in wb),
-         int(i))
-        for k, r, w2o, wb, i in tables["meta"]
-    )
-    wc_all = np.asarray(tables["wide_child"], np.int32).reshape(-1, WIDTH)
-    inst_i, inst_f = _instance_tables(meta, dev)
+    with telemetry.span("upload") as up:
+        dev = scene.device
+        uploaded = 0
+        meta = tuple(
+            (int(k), int(r), tuple(float(v) for v in w2o), tuple(float(v) for v in wb),
+             int(i))
+            for k, r, w2o, wb, i in tables["meta"]
+        )
+        wc_all = np.asarray(tables["wide_child"], np.int32).reshape(-1, WIDTH)
+        inst_i, inst_f = _instance_tables(meta, dev)
 
-    def t(name, dtype):
-        return torch.as_tensor(np.array(tables[name]), dtype=dtype,
-                               device=dev).contiguous()
+        def t(name, dtype):
+            nonlocal uploaded
+            x = torch.as_tensor(np.array(tables[name]), dtype=dtype, device=dev).contiguous()
+            uploaded += x.numel() * x.element_size()
+            return x
 
-    return WideScene(
-        wide_bounds=t("wide_bounds", torch.float32),
-        wide_child=t("wide_child", torch.int32),
-        wide_perm=t("wide_perm", torch.int32),
-        tri_rows=t("tri_rows", torch.float32),
-        sph_rows=t("sph_rows", torch.float32),
-        tri_v0e=t("tri_v0e", torch.float32),
-        inst_w2o=t("inst_w2o", torch.float32),
-        inst_i=inst_i,
-        inst_f=inst_f,
-        scene=dataclasses.replace(scene, has_alpha=False),
-        meta=meta,
-        stack_cap=int(tables["stack_cap"]),
-        wide_depth=_wide_depth(wc_all, [m[1] for m in meta]),
-        leaf_width=int(tables["leaf_width"]),
-        needs_bary=bool(tables["needs_bary"]),
-    )
+        ks = WideScene(
+            wide_bounds=t("wide_bounds", torch.float32),
+            wide_child=t("wide_child", torch.int32),
+            wide_perm=t("wide_perm", torch.int32),
+            tri_rows=t("tri_rows", torch.float32),
+            sph_rows=t("sph_rows", torch.float32),
+            tri_v0e=t("tri_v0e", torch.float32),
+            inst_w2o=t("inst_w2o", torch.float32),
+            inst_i=inst_i,
+            inst_f=inst_f,
+            scene=dataclasses.replace(scene, has_alpha=False),
+            meta=meta,
+            stack_cap=int(tables["stack_cap"]),
+            wide_depth=_wide_depth(wc_all, [m[1] for m in meta]),
+            leaf_width=int(tables["leaf_width"]),
+            needs_bary=bool(tables["needs_bary"]),
+        )
+        up.add(bytes=uploaded)
+    return ks
 
 
 # ---------------------------------------------------------------- kernels
@@ -663,9 +673,10 @@ def trace_closest_wide_packed(ws: WideScene, o, d, active=None, t_max=None):
     if ws.mesh is not None:
         return _shard_ray_op(ws, lambda rep, oo, dd, tm: trace_closest_wide_packed(
             rep, oo, dd, t_max=tm), o, d, t_max)
-    if o.device.type == "cpu":
-        return trace_closest_plain(ws, o, d, t_max)
-    return _launch(ws, o, d, t_max, any_hit=False)
+    with telemetry.kernel("wide_closest", o.shape[0]):
+        if o.device.type == "cpu":
+            return trace_closest_plain(ws, o, d, t_max)
+        return _launch(ws, o, d, t_max, any_hit=False)
 
 
 def shadow_occlusion_wide(ws: WideScene, o, d, t_max_world, active=None):
@@ -674,9 +685,10 @@ def shadow_occlusion_wide(ws: WideScene, o, d, t_max_world, active=None):
     _check_rays(ws.wide_child.device, o, d, t_max)
     if ws.mesh is not None:
         return _shard_ray_op(ws, shadow_occlusion_wide, o, d, t_max)
-    if o.device.type == "cpu":
-        return shadow_plain(ws, o, d, t_max)
-    return _launch(ws, o, d, t_max, any_hit=True)[0]
+    with telemetry.kernel("wide_shadow", o.shape[0]):
+        if o.device.type == "cpu":
+            return shadow_plain(ws, o, d, t_max)
+        return _launch(ws, o, d, t_max, any_hit=True)[0]
 
 
 def _decode_pp(tri_v0e, inst_w2o, o, d, t, pp, need_bary: bool = True,

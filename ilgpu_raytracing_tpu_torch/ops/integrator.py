@@ -53,7 +53,7 @@ from ilgpu_raytracing_tpu_torch.ops.cuda import stream as stream_mod
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide as wide_mod
 from ilgpu_raytracing_tpu_torch.ops.sampling import sample_hemisphere_cosine
 from ilgpu_raytracing_tpu_torch.utils import rng as rng_mod
-from ilgpu_raytracing_tpu_torch.utils import vec
+from ilgpu_raytracing_tpu_torch.utils import telemetry, vec
 
 
 @dataclasses.dataclass
@@ -169,6 +169,7 @@ def _shadow(scene, kscene, o, d, t_max: float, active=None, sort=False,
     return run(o, d, active)
 
 
+@telemetry.spanned("primary")
 def primary_visibility(scene: SceneData, camera, width: int, height: int,
                        chunk_pixels: int = 0, wscene=None,
                        pixels: slice | None = None) -> GBuffer:
@@ -340,15 +341,16 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
         static_reuse = allow_reuse and (
             cfg.enable_temporal_reuse or cfg.enable_spatial_reuse
         )
-        state, res_out, sel = restir_mod.restir_direct(
-            scene, gb_full, res_prev, state, is_lambert, pos, nrm, alb,
-            pixel_idx, width, height, frame, prev_camera, cam_origin,
-            sun_dir, sun_radiance, sky_top, sky_bottom, en_t, en_s,
-            cfg.local_candidates, cfg.delta_candidates,
-            static_reuse=static_reuse,
-            reference_weighting=cfg.restir_reference_weighting,
-            reps=spp, reps_pixel_major=pixel_major,
-        )
+        with telemetry.span("restir"):
+            state, res_out, sel = restir_mod.restir_direct(
+                scene, gb_full, res_prev, state, is_lambert, pos, nrm, alb,
+                pixel_idx, width, height, frame, prev_camera, cam_origin,
+                sun_dir, sun_radiance, sky_top, sky_bottom, en_t, en_s,
+                cfg.local_candidates, cfg.delta_candidates,
+                static_reuse=static_reuse,
+                reference_weighting=cfg.restir_reference_weighting,
+                reps=spp, reps_pixel_major=pixel_major,
+            )
         shadow_o = _offset_origin(pos, nrm, sel["wi"], cfg.eps_n)
         contrib_w = torch.where(
             (is_lambert & sel["ok"])[..., None], thr * sel["contrib"],
@@ -373,11 +375,12 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
             shadow_queue.append(dict(o=shadow_o, d=sel["wi"], contrib=contrib_w,
                                      act=q_act))
         else:
-            occluded = _shadow(
-                scene, wscene, shadow_o, sel["wi"], 1e29, active=q_act,
-                sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
-                treelet_bounds=treelet_bounds,
-            )
+            with telemetry.span("shadow"):
+                occluded = _shadow(
+                    scene, wscene, shadow_o, sel["wi"], 1e29, active=q_act,
+                    sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+                    treelet_bounds=treelet_bounds,
+                )
             li = li + torch.where(
                 (q_act & (~occluded))[..., None], contrib_w, zeros3(contrib_w)
             )
@@ -439,21 +442,24 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
                                          act=sky_act))
                 alive = torch.zeros_like(trace_active)
             else:
-                occluded = _shadow(
-                    scene, wscene, ray_o, new_dir, 1e29, active=sky_act,
-                    sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
-                    treelet_bounds=treelet_bounds,
-                )
+                with telemetry.span("trace"):
+                    occluded = _shadow(
+                        scene, wscene, ray_o, new_dir, 1e29, active=sky_act,
+                        sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+                        treelet_bounds=treelet_bounds,
+                    )
                 missed = sky_act & (~occluded)
                 li = li + torch.where(missed[..., None], sky_w, zeros3(sky_w))
                 alive = sky_act & occluded
         else:
-            hit = _trace(
-                scene, wscene, ray_o, new_dir, active=trace_active,
-                sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
-                treelet_bounds=treelet_bounds,
-            )
-            surf = traverse.shade_hits(scene, hit, ray_o, new_dir)
+            with telemetry.span("trace"):
+                hit = _trace(
+                    scene, wscene, ray_o, new_dir, active=trace_active,
+                    sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+                    treelet_bounds=treelet_bounds,
+                )
+            with telemetry.span("shade"):
+                surf = traverse.shade_hits(scene, hit, ray_o, new_dir)
             missed = trace_active & (~hit.hit)
             li = li + torch.where(
                 missed[..., None],
@@ -479,13 +485,14 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
     # frame from the lambert G-buffer points, shared by all samples
     sun_dir_n = vec.normalize(torch.as_tensor(sun_dir, dtype=torch.float32, device=dev))
     if cfg.dedup_sun_shadow:
-        wi_sun0 = torch.broadcast_to(sun_dir_n, gb_px.pos.shape)
-        lam0 = gb_px.hit & (gb_px.shading == SHADING_LAMBERT)
-        sun_o0 = _offset_origin(gb_px.pos, vec.normalize(gb_px.normal),
-                                wi_sun0, cfg.eps_n)
-        sun_occ0 = tile(_shadow(scene, wscene, sun_o0, wi_sun0.contiguous(),
-                                1e29, active=lam0))
-        eff0 = torch.sum(lam0.to(torch.float32))
+        with telemetry.span("sun_shadow"):
+            wi_sun0 = torch.broadcast_to(sun_dir_n, gb_px.pos.shape)
+            lam0 = gb_px.hit & (gb_px.shading == SHADING_LAMBERT)
+            sun_o0 = _offset_origin(gb_px.pos, vec.normalize(gb_px.normal),
+                                    wi_sun0, cfg.eps_n)
+            sun_occ0 = tile(_shadow(scene, wscene, sun_o0, wi_sun0.contiguous(),
+                                    1e29, active=lam0))
+            eff0 = torch.sum(lam0.to(torch.float32))
     else:
         sun_occ0 = None
         eff0 = torch.zeros((), dtype=torch.float32, device=dev)
@@ -506,29 +513,32 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
     )
     n_bounce = max(1, cfg.max_depth)
     for depth in range(n_bounce):
-        carry = bounce_step(
-            carry, depth, allow_reuse=(depth == 0),
-            sun_occ0=sun_occ0 if depth == 0 else None,
-            sun_dir_n=sun_dir_n if depth == 0 else None,
-            final=(depth == n_bounce - 1),
-        )
+        with telemetry.span("bounce", depth=depth):
+            carry = bounce_step(
+                carry, depth, allow_reuse=(depth == 0),
+                sun_occ0=sun_occ0 if depth == 0 else None,
+                sun_dir_n=sun_dir_n if depth == 0 else None,
+                final=(depth == n_bounce - 1),
+            )
     li, wrote, res_vec, eff = carry[6], carry[10], carry[11], carry[12]
 
     if shadow_queue:
         # one frame-wide sorted any-hit dispatch over every queued segment
         # (max_depth ReSTIR batches and the final sky batch), then each
         # segment's radiance in queue order
-        n_seg = len(shadow_queue)
-        q_act = torch.cat([q["act"] for q in shadow_queue])
-        occ = _shadow(
-            scene, wscene, torch.cat([q["o"] for q in shadow_queue]),
-            torch.cat([q["d"] for q in shadow_queue]), 1e29,
-            active=q_act, sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
-            treelet_bounds=treelet_bounds,
-        )
-        vis = (q_act & (~occ)).reshape(n_seg, n)
-        for b, q in enumerate(shadow_queue):
-            li = li + torch.where(vis[b][..., None], q["contrib"], zeros3(q["contrib"]))
+        with telemetry.span("deferred_shadow"):
+            n_seg = len(shadow_queue)
+            q_act = torch.cat([q["act"] for q in shadow_queue])
+            occ = _shadow(
+                scene, wscene, torch.cat([q["o"] for q in shadow_queue]),
+                torch.cat([q["d"] for q in shadow_queue]), 1e29,
+                active=q_act, sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
+                treelet_bounds=treelet_bounds,
+            )
+            vis = (q_act & (~occ)).reshape(n_seg, n)
+            for b, q in enumerate(shadow_queue):
+                li = li + torch.where(vis[b][..., None], q["contrib"],
+                                      zeros3(q["contrib"]))
 
     # fold per pixel in sample order: scrubbed radiance sum; reservoirs keep
     # the LAST sample that wrote (the same numbers in the same order under
@@ -538,17 +548,18 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
             return x.reshape(m, spp, *x.shape[1:])[:, s]
         return x.reshape(spp, m, *x.shape[1:])[s]
 
-    l_sum = torch.zeros((m, 3), dtype=torch.float32, device=dev)
-    for s in range(spp):
-        l_sum = l_sum + vec.safe_color(sample_slice(li, s), cfg.safe_color_max)
-    color = l_sum * (1.0 / float(spp))
-    res_cur = res_cur_init
-    for s in range(spp):
-        res_cur = _merge_reservoirs(
-            res_cur, res_vec.map(lambda x: sample_slice(x, s)),
-            sample_slice(wrote, s),
-        )
-    depth_out = vec.length(gb_px.pos - cam_origin)
+    with telemetry.span("fold"):
+        l_sum = torch.zeros((m, 3), dtype=torch.float32, device=dev)
+        for s in range(spp):
+            l_sum = l_sum + vec.safe_color(sample_slice(li, s), cfg.safe_color_max)
+        color = l_sum * (1.0 / float(spp))
+        res_cur = res_cur_init
+        for s in range(spp):
+            res_cur = _merge_reservoirs(
+                res_cur, res_vec.map(lambda x: sample_slice(x, s)),
+                sample_slice(wrote, s),
+            )
+        depth_out = vec.length(gb_px.pos - cam_origin)
     return color, depth_out, gb_px.obj_id, res_cur, eff
 
 

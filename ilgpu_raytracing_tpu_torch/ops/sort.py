@@ -16,6 +16,7 @@ import dataclasses
 import torch
 
 from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos
+from ilgpu_raytracing_tpu_torch.utils import telemetry
 
 _BINS = 16
 
@@ -107,6 +108,7 @@ def _sorted_rays(o, d, active, morton_bounds, treelet_bounds=None):
     return perm, pos, act_s
 
 
+@telemetry.spanned("sort")
 def sorted_closest(trace_fn, o, d, active, morton_bounds=None, treelet_bounds=None):
     """trace_fn(o, d, active) -> HitRecord on sorted rays (the binary K6
     path); every field is restored to the original lane order by its own
@@ -119,6 +121,7 @@ def sorted_closest(trace_fn, o, d, active, morton_bounds=None, treelet_bounds=No
         hit, **{f.name: getattr(hit, f.name)[pos_l] for f in dataclasses.fields(hit)})
 
 
+@telemetry.spanned("sort")
 def sorted_closest_packed(trace_fn, decode_fn, o, d, active, morton_bounds=None,
                           treelet_bounds=None):
     """trace_fn(o, d, active) -> packed (t, pp) on sorted rays; the two
@@ -131,6 +134,7 @@ def sorted_closest_packed(trace_fn, decode_fn, o, d, active, morton_bounds=None,
     return decode_fn(t[pos_l], pp[pos_l])
 
 
+@telemetry.spanned("sort")
 def sorted_shadow(shadow_fn, o, d, active, morton_bounds=None,
                   treelet_bounds=None):
     """shadow_fn(o, d, active) -> (N,) bool on sorted rays, restored."""

@@ -35,10 +35,12 @@ import dataclasses
 
 import torch
 
+from ilgpu_raytracing_tpu_torch.utils import telemetry
+
 # Bytes that `PixelShards.gather` copied into a whole ("copied": a one-block
 # gather on its own device copies nothing) and, of those, the bytes of
 # blocks that lived on another device than the target ("moved").
-GATHER_BYTES = {"copied": 0, "moved": 0}
+GATHER_BYTES = telemetry.counter("gather_bytes", copied=0, moved=0)
 
 
 @dataclasses.dataclass(frozen=True)

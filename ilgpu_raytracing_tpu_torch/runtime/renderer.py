@@ -35,7 +35,6 @@ an explicit `device=` that disagrees with them raises.
 from __future__ import annotations
 
 import random
-import time
 
 import numpy as np
 import torch
@@ -50,7 +49,7 @@ from ilgpu_raytracing_tpu_torch.ops.cuda import wide as wide_mod
 from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
 from ilgpu_raytracing_tpu_torch.runtime.framestate import FrameState
 from ilgpu_raytracing_tpu_torch.runtime.hud import FrameTimingHud
-from ilgpu_raytracing_tpu_torch.utils import image, packing
+from ilgpu_raytracing_tpu_torch.utils import image, packing, telemetry
 
 
 def render_frame(scene: SceneData, camera, prev_camera, state: FrameState,
@@ -83,6 +82,7 @@ def render_frame(scene: SceneData, camera, prev_camera, state: FrameState,
     return out_packed, new_state, aux
 
 
+@telemetry.spanned("display")
 def _display(color, accum, accum_count: int, accum_reset: bool,
              cfg: RenderConfig, tonemap_name: str):
     """Progressive accumulation, tone map and pack of low-res pixels.
@@ -96,6 +96,7 @@ def _display(color, accum, accum_count: int, accum_reset: bool,
     return packing.pack_rgba8(display), accum, accum_count
 
 
+@telemetry.spanned("taau")
 def _upsample(low_packed, obj_id, taa_color, taa_obj, taa_valid: bool,
               cfg: RenderConfig, in_w: int, in_h: int, out_w: int, out_h: int,
               pixels: slice | None = None):
@@ -235,7 +236,7 @@ class Renderer:
         self.camera = camera
         self.prev_camera = camera
         self.state = self._new_state()
-        self.frame = 0
+        self.frame = telemetry.REGISTRY.frame = 0  # spans from here on are frame 0's
         self.sun_azimuth = self.cfg.sun_azimuth
         self.sun_elevation = self.cfg.sun_elevation
         self.tonemap_name = tonemap_name
@@ -283,13 +284,15 @@ class Renderer:
         4): the tables are read back, rebuilt on the host and uploaded on
         every call, as the JAX package re-prepares its Pallas scene. Under
         a mesh the scene and the new tables are replicated again."""
-        self.scene = scene.to(self.device)
-        self._prepare_wscene(self.scene)
-        if self.mesh is not None:
-            # block k traces against device k's replicas
-            self._scenes = shrd.replicate(self.mesh, self.scene)
-            if self.wscene is not None:
-                self.wscene = wide_mod.with_mesh(self.wscene, self.mesh)
+        with telemetry.span("set_scene"):
+            with telemetry.span("to_device"):
+                self.scene = scene.to(self.device)
+            self._prepare_wscene(self.scene)
+            if self.mesh is not None:
+                # block k traces against device k's replicas
+                self._scenes = shrd.replicate(self.mesh, self.scene)
+                if self.wscene is not None:
+                    self.wscene = wide_mod.with_mesh(self.wscene, self.mesh)
 
     def _frame_kscene(self):
         """The kernel scene the frame traces: `wscene`, or under a mesh, when
@@ -347,36 +350,42 @@ class Renderer:
         self.in_w, self.in_h = self._internal_resolution(out_w, out_h)
         self.out_w, self.out_h = out_w, out_h
         self.state = self._new_state()
-        self.frame = 0
+        self.frame = telemetry.REGISTRY.frame = 0
         self._camera_moved = True
 
     # ---- frame ----
 
     def render(self, dt: float = 1.0 / 60.0):
-        t0 = time.monotonic()
-        self.sun_azimuth = sky.advance_sun_azimuth(
-            self.sun_azimuth, self.cfg.sun_speed_rad_per_sec, dt
-        )
-        sun_dir = sky.sun_direction(self.sun_azimuth, self.sun_elevation)
-        noise_key = (
-            0 if self.cfg.rng_lock_noise == 0 else self._rng.getrandbits(32) | 1
-        )
-        state = self.state.swapped_reservoirs() if self.frame > 0 else self.state
-        args = (self.camera, self.prev_camera, state, self.frame, noise_key,
-                sun_dir, self._camera_moved, self.cfg, self.in_w, self.in_h,
-                self.out_w, self.out_h, self.tonemap_name, self._frame_kscene())
-        if self.mesh is None:
-            packed, new_state, aux = render_frame(self.scene, *args)
-        else:
-            packed, new_state, aux = render_frame_mesh(
-                self.mesh, self._scenes, *args, device=self.device)
-        self.state = new_state
-        self.prev_camera = self.camera
+        """Issue one frame (no synchronise); returns its packed output on
+        the device. The frame's `frame` span (utils/telemetry.py) also
+        gives the HUD its host time."""
+        telemetry.REGISTRY.frame = self.frame
+        with telemetry.span("frame") as frame_span:
+            self.sun_azimuth = sky.advance_sun_azimuth(
+                self.sun_azimuth, self.cfg.sun_speed_rad_per_sec, dt
+            )
+            sun_dir = sky.sun_direction(self.sun_azimuth, self.sun_elevation)
+            noise_key = (
+                0 if self.cfg.rng_lock_noise == 0 else self._rng.getrandbits(32) | 1
+            )
+            state = self.state.swapped_reservoirs() if self.frame > 0 else self.state
+            args = (self.camera, self.prev_camera, state, self.frame, noise_key,
+                    sun_dir, self._camera_moved, self.cfg, self.in_w, self.in_h,
+                    self.out_w, self.out_h, self.tonemap_name, self._frame_kscene())
+            if self.mesh is None:
+                packed, new_state, aux = render_frame(self.scene, *args)
+            else:
+                packed, new_state, aux = render_frame_mesh(
+                    self.mesh, self._scenes, *args, device=self.device)
+            self.state = new_state
+            self.prev_camera = self.camera
+            self._camera_moved = False
+            self._last_packed = packed
+            self._last_aux = aux
         self.frame += 1
-        self._camera_moved = False
-        self._last_packed = packed
-        self._last_aux = aux
-        self.hud.push(time.monotonic() - t0)
+        # a scene update before the next render() is stamped with its frame
+        telemetry.REGISTRY.frame = self.frame
+        self.hud.push(frame_span.seconds)
         return packed
 
     def render_frames(self, n: int, dt: float = 1.0 / 60.0):

@@ -12,10 +12,17 @@ sun (0.3, 0.6)), or BASELINE config 4 (`--scene config4`: the Cornell
 bench scene with examples/animate.py's loop, every frame a refit of the
 bobbing sphere, Renderer.set_scene and an orbiting camera, progressive
 accumulation; the refit and set_scene are inside the profiled wall), all
-1920x1080 out: two warm-up frames, then FRAMES frames under
-torch.profiler. Prints the wall time per frame, the device-busy share
-(sum of GPU kernel and memcpy time over wall time), the share of the
-hand-written kernels, and the top GPU kernels by total time.
+1920x1080 out: two warm-up frames, FRAMES frames with the profiler off,
+then FRAMES frames under torch.profiler. Prints, from the frames with the
+profiler off, the program's span table (utils/telemetry.py: each span
+name's self milliseconds a frame, its count a frame and its bytes a frame)
+and the lanes a frame handed to each kernel; from the profiled frames, the
+wall time per frame, the device-busy share (the union of the device
+operations' intervals over the wall time, as benchmark/harness/trace.py
+computes it), the share of the hand-written kernels, the top GPU kernels
+by total time, and the 10 longest idle gaps of the device, each named by
+the innermost program span (`record_function` label) open on the host when
+it began.
 
 Run from the repository root on a machine with one CUDA card:
     python3 tools/torch_frame_profile.py [--scene cornell|terrain|courtyard|courtyard-opaque|config4]
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -35,7 +43,28 @@ import numpy as np
 import torch
 
 FRAMES = 3
-OWN_KERNELS = ("trace_kernel", "anyhit_kernel", "hist_kernel", "scan_kernel", "rank_kernel")
+OWN_KERNELS = ("trace_kernel", "anyhit_kernel", "binary_kernel", "treelet_kernel",
+               "hist_kernel", "scan_kernel", "rank_kernel")
+
+
+def span_table(records) -> list[tuple[str, float, int, int]]:
+    """(name, self ns, count, bytes) per span name of telemetry records:
+    self time is a span's own time less its children's."""
+    inner = {}
+    for r in records:
+        inner[r[1]] = inner.get(r[1], 0) + r[5] - r[4]
+    rows = {}
+    for r in records:
+        name, self_ns, n, nbytes = rows.get(r[2], (r[2], 0, 0, 0))
+        rows[r[2]] = (name, self_ns + r[5] - r[4] - inner.get(r[0], 0), n + 1,
+                      nbytes + ((r[6] or {}).get("bytes", 0)))
+    return sorted(rows.values(), key=lambda row: -row[1])
+
+
+def innermost(annotations, t: float) -> str:
+    """The shortest program span (user annotation) open at time t."""
+    open_at = [(e - s, n) for n, s, e in annotations if s <= t <= e]
+    return min(open_at)[1] if open_at else "other"
 
 
 def main() -> int:
@@ -49,8 +78,10 @@ def main() -> int:
     sys.path.insert(0, os.getcwd())
     from torch.profiler import ProfilerActivity, profile
 
+    from benchmark.harness import trace
     from ilgpu_raytracing_tpu_torch.config import RenderConfig
     from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+    from ilgpu_raytracing_tpu_torch.utils import telemetry
 
     def step(frame):
         """What a frame does before render() (config 4: refit and orbit)."""
@@ -111,23 +142,49 @@ def main() -> int:
         step(f)
         r.render().cpu()
     torch.cuda.synchronize()
+    n0, lanes0 = telemetry.REGISTRY.written, dict(telemetry.LANES)
+    for f in range(2, 2 + FRAMES):
+        step(f)
+        r.render().cpu()
+    torch.cuda.synchronize()
+    recs = telemetry.REGISTRY.records()
+    recs = recs[len(recs) - (telemetry.REGISTRY.written - n0):]
+    print(f"program spans, {FRAMES} frames with the profiler off (self ms, count, bytes "
+          f"a frame):")
+    for name, self_ns, n, nbytes in span_table(recs):
+        print(f"{self_ns * 1e-6 / FRAMES:10.3f} ms/frame {n / FRAMES:8.1f}/frame "
+              f"{nbytes / FRAMES:14.0f} B/frame  {name}")
+    for k, v in sorted(telemetry.LANES.items()):
+        print(f"lanes {k}: {(v - lanes0.get(k, 0)) / FRAMES:.0f} a frame")
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for f in range(2, 2 + FRAMES):
-            step(f)
-            r.render().cpu()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in events)
-    own_us = sum(e.self_device_time_total for e in events
-                 if any(k in e.key for k in OWN_KERNELS))
-    n_launch = sum(e.count for e in events)
+        with torch.profiler.record_function("window"):
+            t0 = time.monotonic()
+            for f in range(2 + FRAMES, 2 + 2 * FRAMES):
+                step(f)
+                r.render().cpu()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace_events = json.load(f)["traceEvents"]
+    p = trace.Profile(trace_events, FRAMES)
+    busy_us = p.busy_us()
+    own_us = sum(us for base, _, us in p.kernels() if base in OWN_KERNELS)
     print(f"{torch.cuda.get_device_name(0)}, {args.scene}: {FRAMES} frames, wall "
           f"{wall / FRAMES * 1e3:.3f} ms/frame, device busy "
-          f"{dev_us / 1e3 / FRAMES:.3f} ms/frame ({dev_us / 1e6 / wall:.1%} of wall), "
-          f"hand-written kernels {own_us / 1e3 / FRAMES:.3f} ms/frame, "
-          f"{n_launch / FRAMES:.0f} GPU ops/frame")
+          f"{busy_us / 1e3 / FRAMES:.3f} ms/frame ({busy_us / p.window_us:.1%} of the "
+          f"profiled wall), hand-written kernels {own_us / 1e3 / FRAMES:.3f} ms/frame, "
+          f"{len(p.device) / FRAMES:.0f} GPU ops/frame")
+    annotations = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in trace_events if e.get("ph") == "X"
+                   and e.get("cat") == "user_annotation" and e.get("name") != "window"]
+    gaps = sorted(trace.idle_gaps(p.intervals(), p.lo, p.hi), key=lambda g: g[0] - g[1])
+    for s, e in gaps[:10]:
+        print(f"idle gap {(e - s) * 1e-3:10.3f} ms  in {innermost(annotations, s)}")
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     events.sort(key=lambda e: -e.self_device_time_total)
     lines = [f"{e.self_device_time_total / 1e3 / FRAMES:10.3f} ms/frame "
              f"{e.count / FRAMES:8.1f} calls/frame  {e.key[:110]}" for e in events]
