@@ -1724,11 +1724,15 @@ def phase_config4(dev):
     Cornell scene (sphere_tess (48, 72): 49 x 72 sphere vertices bob), each
     frame refit_mesh_instance -> Renderer.set_scene -> set_camera (orbit)
     -> render with progressive accumulation, copied to the host. set_scene
-    is split by spies into its read-back and leaf packing (wide.prepare),
-    the 8-wide collapse (wide.prepare_wide) and the upload
-    (wide.wide_from_numpy). Then the refit tables' K1 primary hits against
-    the plain walk on the same tables and against K1 on a fresh build of
-    the moved geometry, and a 64x64 refit frame pair, card vs CPU."""
+    is timed by spies on the table rebuild from the last tables
+    (wide.refit_tables) and on the full prep: the read-back and leaf
+    packing (wide.prepare), the 8-wide collapse (wide.prepare_wide) and the
+    upload (wide.wide_from_numpy); the renderer's `scene_tables` counter
+    must show the one full prep of its construction and a refit a frame.
+    Then the card's refit tables against a full prep of the same scene on
+    the card, bit for bit, their K1 primary hits against the plain walk on
+    the same tables and against K1 on a fresh build of the moved geometry,
+    and a 64x64 refit frame pair, card vs CPU."""
     from ilgpu_raytracing_tpu_torch.config import RenderConfig
     from ilgpu_raytracing_tpu_torch.models.cornell import (
         build_cornell_scene,
@@ -1737,7 +1741,7 @@ def phase_config4(dev):
     from ilgpu_raytracing_tpu_torch.models.scene import SceneBuilder, refit_mesh_instance
     from ilgpu_raytracing_tpu_torch.ops import rays
     from ilgpu_raytracing_tpu_torch.ops.cuda import wide
-    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import SCENE_TABLES, Renderer
 
     builder, scene = build_cornell_scene(tess=24, sphere_tess=(48, 72), blas_leaf_size=8,
                                          bvh_method="sah", device=dev)
@@ -1745,10 +1749,12 @@ def phase_config4(dev):
     verts = slice(inst.vertex_first, inst.vertex_first + inst.vertex_count)
     base = builder.positions.copy()
     n_sphere = 49 * 72
+    tables0 = dict(SCENE_TABLES)
     r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3, progressive_accumulation=True),
                  scene, _orbit_camera(0.0, 1920, 1080), device=dev)
     r.sun_azimuth, r.sun_elevation = 0.3, 0.6
-    spent = {"prepare": 0.0, "prepare_wide": 0.0, "wide_from_numpy": 0.0}
+    spent = {"refit_tables": 0.0, "prepare": 0.0, "prepare_wide": 0.0,
+             "wide_from_numpy": 0.0}
 
     @contextlib.contextmanager
     def prep_spies():
@@ -1802,10 +1808,15 @@ def phase_config4(dev):
         f"accumulation, orbiting camera): {CONFIG4_FRAMES} timed frames after 1 warm-up")
     for i, row in enumerate(rows):
         log(f"config 4 frame {i}{' (warm-up)' if i == 0 else ''} ms: refit "
-            f"{row['refit']:.3f}, set_scene {row['set_scene']:.3f} (read-back + leaf "
-            f"packing {row['prepare']:.3f}, 8-wide collapse "
+            f"{row['refit']:.3f}, set_scene {row['set_scene']:.3f} (refit_tables "
+            f"{row['refit_tables']:.3f}; full prep: read-back + leaf packing "
+            f"{row['prepare']:.3f}, 8-wide collapse "
             f"{row['prepare_wide'] - row['wide_from_numpy']:.3f}, upload "
             f"{row['wide_from_numpy']:.3f}), render + copy {row['render']:.3f}")
+    tables = {k: v - tables0[k] for k, v in SCENE_TABLES.items()}
+    log(f"config 4 scene_tables over construction + {n_frames} set_scene calls: {tables}")
+    check(tables == {"prepared": 1, "refitted": n_frames},
+          f"config 4 scene_tables {tables}: want 1 full prep, then a refit a frame")
     mean = {k: float(np.mean([row[k] for row in timed_rows])) for k in rows[0]}
     log(f"config 4 mean ms/frame over the timed frames: refit {mean['refit']:.3f}, "
         f"set_scene {mean['set_scene']:.3f}, render + copy {mean['render']:.3f}, total "
@@ -1825,6 +1836,20 @@ def phase_config4(dev):
     # the orbiting camera moves every frame, so every frame restarts the
     # accumulation, as in examples/animate.py
     check(r.state.accum_count == 1, f"config 4 accumulation count {r.state.accum_count}")
+
+    # the card's refit tables against a full prep of the same scene, bit
+    # for bit (tests/test_torch_refit_tables.py's bar on the CPU)
+    full = wide.prepare_scene(r.scene)
+    differ = [k for k in ("wide_bounds", "wide_child", "wide_perm", "nodes", "tri_rows",
+                          "sph_rows", "tri_v0e", "inst_w2o", "inst_i", "inst_f")
+              if not torch.equal(getattr(r.wscene, k).view(torch.int32),
+                                 getattr(full, k).view(torch.int32))]
+    differ += [k for k in ("meta", "stack_cap", "wide_depth", "leaf_width", "needs_bary")
+               if getattr(r.wscene, k) != getattr(full, k)]
+    check(not differ, f"config 4: the card's refit tables differ from a full prep in {differ}")
+    log(f"config 4 refit tables on the card after {n_frames} refits equal a full prep "
+        f"bit for bit ({full.wide_child.numel() // 8} wide nodes, {full.tri_rows.shape[0]} "
+        f"leaf rows)")
 
     # the refit tables against the plain walk on them, and against a fresh
     # build of the moved geometry (tests/test_bvh.py's bar: hit masks equal,

@@ -3,9 +3,9 @@ per-frame mesh refit + progressive accumulation with tone mapping
 (BASELINE config 4 capabilities; the port's counterpart of `animate.py`).
 
 The Cornell sphere bobs up and down via refit_mesh_instance (BVH topology
-kept, bounds refit per frame) and `Renderer.set_scene` re-prepares the
-kernel tables every frame; the camera orbits; TAAU handles temporal
-reuse. Writes a frame sequence.
+kept, bounds refit per frame) and `Renderer.set_scene` rebuilds the
+kernel tables on the device every frame (`wide.refit_tables`); the camera
+orbits; TAAU handles temporal reuse. Writes a frame sequence.
 
 Usage: python examples/torch_animate.py [--device cuda|cpu] [--cpu]
        [--width 320 --height 240] [--frames 8] [--outdir DIR]

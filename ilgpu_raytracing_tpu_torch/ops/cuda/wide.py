@@ -15,6 +15,13 @@ entries (the plain walk's per-lane DFS bound is 7 * depth + 1). The kernels
 read the node tables packed into one 256-byte record per node, `nodes`
 (`pack_wide_nodes`).
 
+Refit (`refit_tables`): the full prep also records which binary node fills
+each wide slot and which triangle fills each leaf-row slot (`RefitMaps`,
+uploaded with the tables). A scene that keeps the prepared scene's topology tensors
+(the same objects, as `models/scene.refit_mesh_instance` returns them) gets
+its tables rebuilt on its device from those maps and its moved boxes and
+vertices, equal bit for bit to a full prep of it.
+
 Device side: `trace_closest_wide_packed` (K1) and `shadow_occlusion_wide`
 (K2) launch the CUDA kernels on CUDA tensors and run their plain versions
 on CPU tensors: the per-lane skip-index walk of ops/traverse.py over the
@@ -80,6 +87,8 @@ class PackedScene:
     meta: tuple  # per instance (kind, root, w2o 12, bounds 6, inst_id)
     leaf_width: int = LEAF_WIDTH
     needs_bary: bool = True
+    # (Lt, 8) i32: the triangle each tri_rows slot holds, -1 empty (RefitMaps)
+    tri_prims: np.ndarray | None = dataclasses.field(default=None, repr=False)
 
 
 def supports_scene(scene: SceneData, max_tris: int | None = None) -> bool:
@@ -131,12 +140,14 @@ def prepare(scene: SceneData) -> PackedScene:
         inst_types[i] = BLAS_TRI_MESH
 
     tri_rows: list[np.ndarray] = []
+    tri_prims: list[np.ndarray] = []
     sph_rows: list[np.ndarray] = []
     max_count = 1
 
     def pack_leaf(kind: int, first: int, count: int) -> int:
         row = np.zeros((_LANES,), np.float32)
         if kind == BLAS_TRI_MESH:
+            prims = np.full((LEAF_WIDTH,), -1, np.int32)
             for j in range(min(count, LEAF_WIDTH)):
                 p = int(tri_prim[first + j])
                 base = j * TRI_STRIDE
@@ -144,7 +155,9 @@ def prepare(scene: SceneData) -> PackedScene:
                 row[base + 3: base + 6] = tri_e1[p]
                 row[base + 6: base + 9] = tri_e2[p]
                 row[base + 9] = np.float32(p)  # ids < 2^24: exact in f32
+                prims[j] = p
             tri_rows.append(row)
+            tri_prims.append(prims)
             return len(tri_rows) - 1
         for j in range(min(count, LEAF_WIDTH)):
             p = int(sph_prim[first + j])
@@ -192,6 +205,8 @@ def prepare(scene: SceneData) -> PackedScene:
         meta=tuple(meta),
         leaf_width=max_count,
         needs_bary=_scene_needs_bary(scene),
+        tri_prims=(np.stack(tri_prims) if tri_prims
+                   else np.full((1, LEAF_WIDTH), -1, np.int32)),
     )
 
 
@@ -255,6 +270,19 @@ def _octant_perms(wb: np.ndarray, wc: np.ndarray) -> np.ndarray:
     return perms
 
 
+@dataclasses.dataclass(frozen=True)
+class RefitMaps:
+    """What a full wide prep derived from the scene's topology, kept for
+    `refit_tables`: the binary node each wide slot's box copies and the
+    triangle each leaf-row slot holds (-1 for an empty slot), on the
+    tables' device, and the scene's alpha flag (the kernels' scene has it
+    off)."""
+
+    slot_node: torch.Tensor  # (W, 8) i32
+    tri_prims: torch.Tensor  # (Lt, 8) i32
+    has_alpha: bool
+
+
 @dataclasses.dataclass
 class WideScene:
     """Device tables of the wide kernels plus the scene they came from."""
@@ -278,6 +306,8 @@ class WideScene:
     # traced against `replicas.copies[k]`, these tables on mesh.devices[k]
     mesh: object = None
     replicas: object = None
+    # set by a full prep from a SceneData (`prepare_scene`), None otherwise
+    _refit_maps: RefitMaps | None = dataclasses.field(default=None, repr=False)
     # (W, 64) i32 node records of K1, K2 and K7, derived from the wide tables
     nodes: torch.Tensor = dataclasses.field(init=False, repr=False)
 
@@ -352,9 +382,19 @@ def wide_tables(pscene: PackedScene) -> dict:
     bounds = np.asarray(pscene.nodes_rows)[:, 0:6]
     wide_bounds: list[np.ndarray] = []
     wide_child: list[np.ndarray] = []
+    slot_node: list[np.ndarray] = []  # the binary node each slot copies, -1 empty
 
     def is_leaf(b: int) -> bool:
         return ifl[b, 2] > 0
+
+    def new_node() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        wb = np.zeros((WIDTH, 6), np.float32)
+        wc = np.full((WIDTH,), _EMPTY, np.int32)
+        sn = np.full((WIDTH,), -1, np.int32)
+        wide_bounds.append(wb)
+        wide_child.append(wc)
+        slot_node.append(sn)
+        return wb, wc, sn
 
     def collapse(b_root: int) -> int:
         # gather up to WIDTH binary descendants (leaves stay, inners expand)
@@ -367,12 +407,10 @@ def wide_tables(pscene: PackedScene) -> dict:
             entries.insert(idx, b + 1)  # right subtree emitted after the node
             entries.insert(idx, int(ifl[b, 0]))
         wid = len(wide_child)
-        wb = np.zeros((WIDTH, 6), np.float32)
-        wc = np.full((WIDTH,), _EMPTY, np.int32)
-        wide_bounds.append(wb)
-        wide_child.append(wc)
+        wb, wc, sn = new_node()
         for c, b in enumerate(entries):
             wb[c] = bounds[b]
+            sn[c] = b
             if is_leaf(b):
                 wc[c] = _leaf_enc(int(ifl[b, 1]), int(ifl[b, 2]))
             else:
@@ -384,12 +422,10 @@ def wide_tables(pscene: PackedScene) -> dict:
         if is_leaf(root):
             # single-leaf instance -> wide node with one child
             wid = len(wide_child)
-            wb = np.zeros((WIDTH, 6), np.float32)
-            wc = np.full((WIDTH,), _EMPTY, np.int32)
+            wb, wc, sn = new_node()
             wb[0] = bounds[root]
             wc[0] = _leaf_enc(int(ifl[root, 1]), int(ifl[root, 2]))
-            wide_bounds.append(wb)
-            wide_child.append(wc)
+            sn[0] = root
         else:
             wid = collapse(root)
         meta.append((kind, wid, w2o, wbounds, inst_id))
@@ -433,12 +469,15 @@ def wide_tables(pscene: PackedScene) -> dict:
         stack_cap=max(int(cap), 64),
         leaf_width=pscene.leaf_width,
         needs_bary=pscene.needs_bary,
+        slot_node=np.stack(slot_node).reshape(-1),
+        tri_prims=pscene.tri_prims,
     )
 
 
 def wide_from_numpy(tables: dict, scene: SceneData) -> WideScene:
     """WideScene from the tables of a wide prep (this module's or the JAX
-    package's `prepare_wide`, read out as numpy), on `scene`'s device."""
+    package's `prepare_wide`, read out as numpy), on `scene`'s device; with
+    `RefitMaps` when the tables carry this module's maps."""
     with telemetry.span("upload") as up:
         dev = scene.device
         uploaded = 0
@@ -472,9 +511,129 @@ def wide_from_numpy(tables: dict, scene: SceneData) -> WideScene:
             wide_depth=_wide_depth(wc_all, [m[1] for m in meta]),
             leaf_width=int(tables["leaf_width"]),
             needs_bary=bool(tables["needs_bary"]),
+            _refit_maps=(RefitMaps(
+                slot_node=t("slot_node", torch.int32).view(-1, WIDTH),
+                tri_prims=t("tri_prims", torch.int32).view(-1, WIDTH),
+                has_alpha=bool(scene.has_alpha))
+                if tables.get("tri_prims") is not None else None),
         )
         up.add(bytes=uploaded)
     return ks
+
+
+# the scene tables from which a wide prep derives the topology part of its
+# tables, and those whose values it copies (boxes, vertices, instance boxes)
+_TOPOLOGY = ("blas_ifields", "tri_prim_idx", "sphere_prim_idx", "inst_blas_root",
+             "inst_w2o", "sph_instances", "tri_instances", "tri_mat", "sph_center",
+             "sph_radius", "sph_albedo", "sph_shading", "sph_ior", "sph_mat", "mat_kd",
+             "mat_diffuse_tex", "mat_alpha_tex", "mat_alpha_cutoff", "mat_two_sided",
+             "mat_shading", "mat_ior")
+_MOVED = ("blas_bmin", "blas_bmax", "tri_v0", "tri_e1", "tri_e2", "inst_bmin", "inst_bmax")
+_OCTANT_POS = tuple((o >> 2 & 1, o >> 1 & 1, o & 1) for o in range(8))
+
+
+def octant_orders(wb: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
+    """`_octant_perms` of every wide node at once, on the tables' device:
+    boxes `wb` (W, 8, 6) and children `wc` (W, 8) -> (W, 8) int32. The key
+    of a slot in octant o is its centroid's coordinates, each signed by
+    o's bit, added x, y then z (exact products, numpy's order), inf for an
+    empty slot; a slot's rank is the number of slots before it in a stable
+    ascending sort with NaN last, counted pairwise, so no sort kernel's
+    order of -0.0 and +0.0 enters."""
+    cent = (wb[..., 0:3] + wb[..., 3:6]) * 0.5
+    pos = torch.tensor(_OCTANT_POS, dtype=torch.bool, device=wb.device)[:, None, None, :]
+    terms = torch.where(pos, cent, -cent)  # (8 octants, W, 8 slots, 3)
+    key = (terms[..., 0] + terms[..., 1]) + terms[..., 2]
+    key = torch.where(wc == _EMPTY, torch.full_like(key, float("inf")), key)
+    nan = torch.isnan(key)
+    ki, kj = key[..., :, None], key[..., None, :]  # slot i's key against slot j's
+    ni, nj = nan[..., :, None], nan[..., None, :]
+    slot = torch.arange(WIDTH, device=wb.device)
+    earlier = slot[None, :] < slot[:, None]  # j < i
+    before = (kj < ki) | (ni & ~nj) | (((kj == ki) | (ni & nj)) & earlier)
+    rank = before.sum(-1)  # (8, W, 8): visit rank of each slot
+    packed = (slot << (4 * rank)).sum(-1)  # slot << 4 rank, as int64
+    packed = torch.where(packed >= 1 << 31, packed - (1 << 32), packed)
+    return packed.to(torch.int32).T.contiguous()
+
+
+def refit_tables(prev, scene: SceneData) -> WideScene | None:
+    """The tables of `scene` from `prev`'s, when `prev` is a WideScene of a
+    full prep (`prepare_scene`) and `scene` differs from the scene it was
+    prepared from only in the tables a refit writes (`_MOVED`): every
+    topology table (`_TOPOLOGY`) the same tensor object, the moved tables
+    of the same shapes and types, the same device, alpha flag and leaf
+    maxima. Else None, and the caller runs the full prep.
+
+    The new tables are fresh tensors on the scene's device; `prev`'s are
+    not written. Boxes are gathered through the slot map, the leaf rows'
+    vertices through the triangle map, the per-octant orders recomputed
+    (`octant_orders`); what depends on the topology alone (children, the
+    sphere rows, the instance table, stack bounds, depth) is `prev`'s. The
+    instance world boxes are read back for `meta`. Equal bit for bit to
+    `prepare_scene(scene)` with the mesh left off (`with_mesh` again)."""
+    maps = getattr(prev, "_refit_maps", None)
+    if not isinstance(prev, WideScene) or maps is None:
+        return None
+    old = prev.scene
+    if (scene.device != old.device or bool(scene.has_alpha) != maps.has_alpha
+            or scene.blas_leaf_max != old.blas_leaf_max
+            or scene.tlas_leaf_max != old.tlas_leaf_max):
+        return None
+    if any(getattr(scene, k) is not getattr(old, k) for k in _TOPOLOGY):
+        return None
+    if any((getattr(scene, k).shape, getattr(scene, k).dtype)
+           != (getattr(old, k).shape, getattr(old, k).dtype) for k in _MOVED):
+        return None
+    with telemetry.span("refit_tables"):
+        # each slot's box from its binary node, zeros for an empty slot
+        nb = scene.blas_bmin.shape[0]
+        boxes = torch.cat([scene.blas_bmin, scene.blas_bmax], 1)
+        boxes = torch.cat([boxes, boxes.new_zeros((1, 6))])
+        wb = boxes[torch.where(maps.slot_node >= 0, maps.slot_node, nb).long()]
+        perm = octant_orders(wb, prev.wide_child.view(-1, WIDTH))
+
+        # each leaf-row slot's v0 e1 e2 from its triangle; ids and pads kept
+        nt = scene.tri_v0.shape[0]
+        v9 = torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2], 1)
+        v9 = torch.cat([v9, v9.new_zeros((1, 9))])
+        prims = maps.tri_prims
+        vals = v9[torch.where(prims >= 0, prims, nt).long()]  # (Lt, 8, 9)
+        tri_rows = prev.tri_rows.clone()
+        tri_rows[:, : WIDTH * TRI_STRIDE].view(-1, WIDTH, TRI_STRIDE)[..., :9] = vals
+
+        # wide_tables' epilogue rows: a slot is real when its id is not 0 or
+        # its values are not all zero; the rest land in a dropped last row
+        n_tbl = prev.tri_v0e.shape[0]
+        p, v = prims.reshape(-1), vals.reshape(-1, 9)
+        real = (p > 0) | ((p == 0) & (v.abs().sum(-1) > 0.0))
+        tri_v0e = v.new_zeros((n_tbl + 1, 9)).index_copy_(
+            0, torch.where(real, p, n_tbl).long(), v)[:n_tbl]
+
+        ids = prev.inst_i[:, 2].long()
+        inst_f = torch.cat([prev.inst_f[:, :12], scene.inst_bmin[ids],
+                            scene.inst_bmax[ids]], 1)
+        world = inst_f[:, 12:].cpu().tolist()
+        meta = tuple((k, r, w2o, tuple(wbox), i)
+                     for (k, r, w2o, _wb, i), wbox in zip(prev.meta, world))
+        return WideScene(
+            wide_bounds=wb.reshape(-1),
+            wide_child=prev.wide_child,
+            wide_perm=perm.reshape(-1),
+            tri_rows=tri_rows,
+            sph_rows=prev.sph_rows,
+            tri_v0e=tri_v0e,
+            inst_w2o=prev.inst_w2o,
+            inst_i=prev.inst_i,
+            inst_f=inst_f,
+            scene=dataclasses.replace(scene, has_alpha=False),
+            meta=meta,
+            stack_cap=prev.stack_cap,
+            wide_depth=prev.wide_depth,
+            leaf_width=prev.leaf_width,
+            needs_bary=prev.needs_bary,
+            _refit_maps=maps,
+        )
 
 
 # ---------------------------------------------------------------- kernels

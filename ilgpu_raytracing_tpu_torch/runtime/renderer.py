@@ -51,6 +51,10 @@ from ilgpu_raytracing_tpu_torch.runtime.framestate import FrameState
 from ilgpu_raytracing_tpu_torch.runtime.hud import FrameTimingHud
 from ilgpu_raytracing_tpu_torch.utils import image, packing, telemetry
 
+# the path each set_scene took to its kernel tables: a full prep, or the
+# wide tables rebuilt from the last ones (wide.refit_tables)
+SCENE_TABLES = telemetry.counter("scene_tables", prepared=0, refitted=0)
+
 
 def render_frame(scene: SceneData, camera, prev_camera, state: FrameState,
                  frame: int, noise_key: int, sun_dir, accum_reset: bool,
@@ -263,6 +267,11 @@ class Renderer:
             self.wscene = None
             return
         if wide_mod.supports_scene(scene):
+            refit = wide_mod.refit_tables(self.wscene, scene)
+            if refit is not None:
+                SCENE_TABLES["refitted"] += 1
+                self.wscene = refit
+                return
             self.wscene = wide_mod.prepare_scene(scene)
         elif stream_mod.supports_scene(scene):
             # large scenes: the streaming kernels (BASELINE config 5)
@@ -276,14 +285,20 @@ class Renderer:
             )
         else:
             self.wscene = None
+            return
+        SCENE_TABLES["prepared"] += 1
 
     def set_scene(self, scene: SceneData) -> None:
         """Swap the committed scene (moved to the renderer's device) and
-        re-prepare the kernel tables. This is also the per-frame entry of
-        a refit scene (models/scene.refit_mesh_instance, BASELINE config
-        4): the tables are read back, rebuilt on the host and uploaded on
-        every call, as the JAX package re-prepares its Pallas scene. Under
-        a mesh the scene and the new tables are replicated again."""
+        prepare its kernel tables. This is also the per-frame entry of a
+        refit scene (models/scene.refit_mesh_instance, BASELINE config 4):
+        a scene that keeps the topology tensors of the one the wide tables
+        were prepared from gets them rebuilt on its device
+        (`wide.refit_tables`); any other scene, and every scene on the
+        streaming route, is prepared in full on the host and uploaded, as
+        the JAX package re-prepares its Pallas scene. `SCENE_TABLES`
+        counts the two paths. Under a mesh the scene and the new tables
+        are replicated again."""
         with telemetry.span("set_scene"):
             with telemetry.span("to_device"):
                 self.scene = scene.to(self.device)

@@ -88,7 +88,8 @@ def test_spans_nest_under_the_frame_and_the_scene_update(frame):
     assert {x[3] for x in recs} == {frame["r"].frame - 1}
     kids = lambda name: [x[2] for x in recs if parent(x) == name]
     assert kids("refit") == ["readback", "refit_bvh", "tlas", "upload"]
-    assert kids("set_scene") == ["to_device", "prepare", "prepare_wide", "upload"]
+    # a refit of the prepared topology: the wide tables rebuilt, no host prep
+    assert kids("set_scene") == ["to_device", "refit_tables"]
     assert all(x[6]["bytes"] > 0 for x in recs if x[2] in ("readback", "upload"))
     assert kids("frame") == ["primary", "sun_shadow", "bounce", "bounce", "fold", "display",
                              "taau"]

@@ -15,8 +15,11 @@ accumulation; the refit and set_scene are inside the profiled wall), all
 1920x1080 out: two warm-up frames, FRAMES frames with the profiler off,
 then FRAMES frames under torch.profiler. Prints, from the frames with the
 profiler off, the program's span table (utils/telemetry.py: each span
-name's self milliseconds a frame, its count a frame and its bytes a frame)
-and the lanes a frame handed to each kernel; from the profiled frames, the
+name's self milliseconds a frame, its count a frame and its bytes a frame;
+in config 4 `set_scene` holds `refit_tables`, the wide tables rebuilt from
+the last ones, where a full prep holds `prepare`, `prepare_wide` and
+`upload`), the lanes a frame handed to each kernel and the renderer's
+`scene_tables` counts (full preps and refits); from the profiled frames, the
 wall time per frame, the device-busy share (the union of the device
 operations' intervals over the wall time, as benchmark/harness/trace.py
 computes it), the share of the hand-written kernels, the top GPU kernels
@@ -143,6 +146,7 @@ def main() -> int:
         r.render().cpu()
     torch.cuda.synchronize()
     n0, lanes0 = telemetry.REGISTRY.written, dict(telemetry.LANES)
+    tables0 = dict(telemetry.REGISTRY.counters["scene_tables"])
     for f in range(2, 2 + FRAMES):
         step(f)
         r.render().cpu()
@@ -156,6 +160,9 @@ def main() -> int:
               f"{nbytes / FRAMES:14.0f} B/frame  {name}")
     for k, v in sorted(telemetry.LANES.items()):
         print(f"lanes {k}: {(v - lanes0.get(k, 0)) / FRAMES:.0f} a frame")
+    tables = telemetry.REGISTRY.counters["scene_tables"]
+    print(f"scene_tables over the {FRAMES} frames: "
+          f"{ {k: v - tables0[k] for k, v in tables.items()} } (since start: {tables})")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with torch.profiler.record_function("window"):
