@@ -1,12 +1,16 @@
 """The benchmark's only door into the program under test, the PyTorch and
 CUDA port `ilgpu_raytracing_tpu_torch`: it hands the program the scene,
 the render settings and each frame's camera and vertices through the
-public entry (`models.scene.SceneBuilder`, `runtime.renderer.Renderer`,
+public entry (`models.scene.SceneBuilder`, for a textured scene
+`models.obj_loader.add_obj_instance`, `runtime.renderer.Renderer`,
 `models.scene.refit_mesh_instance`), and reads back only the presented
 frame and the state the frame hands on (`Renderer.state`), to judge them.
 """
 
 from __future__ import annotations
+
+import os
+import tempfile
 
 import numpy as np
 
@@ -25,12 +29,24 @@ RENDER_KEYS = (
 
 
 def build_scene(spec: dict, build: dict, device):
-    """(builder, committed scene) of a scene spec through SceneBuilder."""
+    """(builder, committed scene) of a scene spec through SceneBuilder. A
+    spec with `obj_files` is written to a temporary directory and loaded
+    as one instance through the program's OBJ/MTL/TGA loader."""
     from ilgpu_raytracing_tpu_torch.models.materials import Material
     from ilgpu_raytracing_tpu_torch.models.scene import SceneBuilder
 
     b = SceneBuilder(blas_leaf_size=int(build["blas_leaf_size"]),
                      bvh_method=build["bvh_method"])
+    if "obj_files" in spec:
+        from ilgpu_raytracing_tpu_torch.models.obj_loader import add_obj_instance
+
+        with tempfile.TemporaryDirectory() as d:
+            for name, data in spec["obj_files"].items():
+                with open(os.path.join(d, name), "wb") as f:
+                    f.write(data)
+            add_obj_instance(b, os.path.join(d, next(n for n in spec["obj_files"]
+                                                     if n.endswith(".obj"))))
+        return b, b.commit(device)
     for m in spec["materials"]:
         b.add_material(Material(kd=tuple(m["kd"]), two_sided=bool(m["two_sided"]),
                                 shading=int(m["shading"]), ior=float(m["ior"])))

@@ -13,6 +13,11 @@ primitive, whatever the tree: the tree only skips boxes a ray misses.
 The tests and their acceptance rules are the renderer's: t above `T_EPS`,
 spheres before triangles with a triangle kept only where it is strictly
 nearer, and rays in object space through each instance's identity affine.
+On a scene with alpha cutouts (`Masks`) the walk tests each candidate
+triangle's mask where it tests the triangle, as the upstream renderer's
+traversal does: a closest hit skips a triangle its mask rejects and walks
+on, an any-hit test counts only a triangle the any-hit band accepts
+(`texture.opaque`).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from benchmark.reference import ops
+from benchmark.reference import texture
 
 LEAF = 8
 KIND_SPHERE = 1
@@ -46,6 +52,22 @@ class Hits:
 
 
 @dataclasses.dataclass
+class Masks:
+    """The alpha cutouts of the triangles: corner UVs, mask texture (-1 for
+    none) and cutoff of each, and the texture pool."""
+
+    tri_uv: torch.Tensor  # (T, 3, 2)
+    alpha_tex: torch.Tensor  # (T,) int64
+    cutoff: torch.Tensor  # (T,)
+    pool: texture.Pool
+
+    def opaque(self, tri, bu, bv, closest: bool):
+        """Whether the hits (bu, bv) on triangles `tri` pass their masks."""
+        u, v = texture.uv_at(self.tri_uv[tri], bu, bv)
+        return texture.opaque(self.pool, self.alpha_tex[tri], self.cutoff[tri], u, v, closest)
+
+
+@dataclasses.dataclass
 class Accel:
     """Triangles (v0, e1, e2), spheres and the heap tree on one device."""
 
@@ -60,6 +82,7 @@ class Accel:
     leaf_tris: torch.Tensor  # (n_leaves, LEAF) int64, -1 padding
     first_leaf: int  # P: heap index of leaf 0
     identity: torch.Tensor  # (3, 4): every instance's affine
+    masks: Masks | None = None  # the triangles' alpha cutouts, where the scene has any
 
 
 def _morton(c: np.ndarray) -> np.ndarray:
@@ -76,12 +99,13 @@ def _morton(c: np.ndarray) -> np.ndarray:
 
 
 def build(positions: np.ndarray, tris: np.ndarray, spheres: list[dict], device,
-          round_to=None) -> Accel:
+          round_to=None, masks: Masks | None = None) -> Accel:
     """The scene's ray-query structure. `positions` (V, 3) float32 and
     `tris` (T, 3) give the triangles in the scene's global triangle order;
     `spheres` are dicts with `center` and `radius` in sphere-id order.
     `round_to` (a torch dtype) rounds the geometry to that precision first:
-    the control of the correctness check."""
+    the control of the correctness check. `masks` gives the triangles'
+    alpha cutouts, tested in the walk."""
     positions = np.asarray(positions, np.float32)
     tris = np.asarray(tris, np.int64)
     v0, v1, v2 = positions[tris[:, 0]], positions[tris[:, 1]], positions[tris[:, 2]]
@@ -124,7 +148,8 @@ def build(positions: np.ndarray, tris: np.ndarray, spheres: list[dict], device,
                  node_valid=t(valid, torch.bool),
                  leaf_tris=t(leaf_tris.reshape(n_leaves, LEAF), torch.int64),
                  first_leaf=p,
-                 identity=t(np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]], np.float32)))
+                 identity=t(np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]], np.float32)),
+                 masks=masks)
 
 
 def _miss(n: int, dev) -> Hits:
@@ -163,7 +188,8 @@ def _walk(acc: Accel, o, d, t_lim, any_hit: bool):
     """Triangle walk of every lane from the root, nearer child first, the
     farther pushed on a per-lane stack with its entry t. Closest: (t, prim,
     bu, bv) with t below `t_lim` (T_INF and -1 where none); any-hit: a
-    bool mask of a triangle hit with T_EPS < t < t_lim."""
+    bool mask of a triangle hit with T_EPS < t < t_lim. A triangle whose
+    alpha mask rejects the hit counts as missed."""
     n = o.shape[0]
     dev = o.device
     if any_hit:
@@ -195,6 +221,8 @@ def _walk(acc: Accel, o, d, t_lim, any_hit: bool):
                 o[sub][:, None, :], d[sub][:, None, :], acc.v0[safe], acc.e1[safe],
                 acc.e2[safe])
             valid = (ids >= 0) & ok & (t > ops.T_EPS)
+            if acc.masks is not None:
+                valid = valid & acc.masks.opaque(safe, bu, bv, closest=not any_hit)
             if any_hit:
                 live[0][sub] = live[0][sub] | (valid & (t < lim[sub, None])).any(dim=1)
             else:

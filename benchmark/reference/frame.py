@@ -1,7 +1,8 @@
 """The reference frame: one step of the path tracer in plain PyTorch.
 
 A frozen restatement of the renderer's plain frame path for the scenes the
-benchmark builds (opaque, untextured, every instance at the identity):
+benchmark builds (one mesh and spheres, every instance at the identity;
+triangles may carry a diffuse texture and an alpha-cutout mask):
 primary visibility and deferred shading, the wavefront path trace with all
 samples in one lane batch (ReSTIR DI over sky and sun candidates with
 temporal and spatial reuse from the previous frame, mirror, glass and
@@ -9,7 +10,11 @@ lambert bounces, Russian roulette, visibility-ray roulette, the shared
 bounce-0 sun ray and the final any-hit sky test), the per-pixel fold,
 progressive accumulation, tone map and pack, and the TAAU resolve to the
 output resolution. Ray queries go to the reference's own structure
-(`accel`). It imports nothing of the program under test.
+(`accel`), which tests the alpha masks in its walk; textures are read by
+`texture`. On a scene with any alpha mask the last bounce traces its
+scatter ray for the closest hit and takes the sky where it misses, as the
+renderer does there, in place of the opaque scenes' any-hit sky test with
+its roulette. It imports nothing of the program under test.
 
 `render_frame` takes the frame's inputs and the state carried in from the
 previous frame and returns the presented frame and the state it hands on.
@@ -24,6 +29,7 @@ import torch
 
 from benchmark.reference import accel
 from benchmark.reference import ops
+from benchmark.reference import texture
 
 SHADING_LAMBERT, SHADING_MIRROR, SHADING_GLASS = 0, 1, 2
 LIGHT_ENV, LIGHT_SUN = 1, 2
@@ -105,16 +111,35 @@ class Scene:
     acc: accel.Accel
     tri_rows: torch.Tensor  # (T, 12): e1 e2 kd two_sided shading ior
     sph_rows: torch.Tensor  # (S, 9): center radius base_albedo shading ior
+    # a textured scene's: the texture pool, corner UVs (T, 3, 2) and diffuse
+    # texture (T,) of each triangle
+    pool: texture.Pool | None = None
+    tri_uv: torch.Tensor | None = None
+    tri_dtex: torch.Tensor | None = None
+    has_alpha: bool = False
 
 
 def make_scene(spec: dict, device, round_to=None) -> Scene:
     """From a scene spec (`benchmark/scenes/<kind>.py`): materials, one
-    mesh (positions, tris, tri_mat) and spheres."""
+    mesh (positions, tris, tri_mat) and spheres; a textured spec adds
+    `textures`, the mesh's `tri_uv` and the materials' `diffuse_tex`,
+    `alpha_tex` and `alpha_cutoff`."""
     mesh, mats, spheres = spec["mesh"], spec["materials"], spec["spheres"]
-    acc = accel.build(mesh["positions"], mesh["tris"], spheres, device, round_to)
+    textured = "textures" in spec
+    if textured and any(mats[s["material"]].get("diffuse_tex", -1) >= 0 for s in spheres):
+        raise ValueError("the reference reads no texture on a sphere")
+    tm = np.asarray(mesh["tri_mat"], np.int64)
+    per_tri = lambda key, default, dt: torch.as_tensor(
+        np.array([m.get(key, default) for m in mats])[tm], dtype=dt, device=device)
+    pool = texture.pool(spec["textures"], device, round_to) if textured else None
+    tri_uv = (torch.as_tensor(np.asarray(mesh["tri_uv"], np.float32), device=device)
+              if textured else None)
+    has_alpha = textured and any(m.get("alpha_tex", -1) >= 0 for m in mats)
+    masks = accel.Masks(tri_uv, per_tri("alpha_tex", -1, torch.int64),
+                        per_tri("alpha_cutoff", 0.5, torch.float32), pool) if has_alpha else None
+    acc = accel.build(mesh["positions"], mesh["tris"], spheres, device, round_to, masks)
     mk = lambda key: np.array([m[key] for m in mats], np.float32)
     kd, two, shade, ior = (mk("kd"), mk("two_sided"), mk("shading"), mk("ior"))
-    tm = np.asarray(mesh["tri_mat"], np.int64)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
     tri_rows = torch.cat([acc.e1, acc.e2, t(kd[tm]), t(two[tm])[:, None],
                           t(shade[tm])[:, None], t(ior[tm])[:, None]], dim=1)
@@ -128,13 +153,16 @@ def make_scene(spec: dict, device, round_to=None) -> Scene:
                               t([s["ior"] for s in spheres])[:, None]], dim=1)
     else:
         sph_rows = torch.zeros((1, 9), dtype=torch.float32, device=device)
-    return Scene(acc=acc, tri_rows=tri_rows, sph_rows=sph_rows)
+    return Scene(acc=acc, tri_rows=tri_rows, sph_rows=sph_rows, pool=pool, tri_uv=tri_uv,
+                 tri_dtex=per_tri("diffuse_tex", -1, torch.int64) if textured else None,
+                 has_alpha=has_alpha)
 
 
 def shade_hits(sc: Scene, hit: accel.Hits, o, d):
     """Surface attributes at each hit: position, shading normal (two-sided
-    triangles face the ray), albedo, shading mode, ior, object id (the
-    global triangle id, -1 for spheres and misses)."""
+    triangles face the ray), albedo (a textured triangle's from its
+    diffuse texture at the hit's UV, in place of kd), shading mode, ior,
+    object id (the global triangle id, -1 for spheres and misses)."""
     n = o.shape[0]
     is_sph = hit.kind == accel.KIND_SPHERE
     is_tri = hit.kind == accel.KIND_TRI
@@ -151,7 +179,14 @@ def shade_hits(sc: Scene, hit: accel.Hits, o, d):
     n_tri_obj = torch.where(flip[..., None], -n_tri_obj, n_tri_obj)
     n_obj = torch.where(is_sph[..., None], n_sph_obj, n_tri_obj)
     normal_w = ops.normalize(ops.transform_vector(ident, n_obj))
-    albedo = torch.where(is_sph[..., None], srow[:, 4:7], trow[:, 6:9])
+    tri_albedo = trow[:, 6:9]
+    if sc.pool is not None:
+        last = sc.tri_uv.shape[0] - 1
+        u, v = texture.uv_at(sc.tri_uv[prim.clamp(max=last)], hit.bu, hit.bv)
+        dtex = sc.tri_dtex[prim.clamp(max=last)]
+        tri_albedo = torch.where((dtex >= 0)[..., None],
+                                 texture.bilinear(sc.pool, sc.pool.rgb, dtex, u, v), tri_albedo)
+    albedo = torch.where(is_sph[..., None], srow[:, 4:7], tri_albedo)
     shading = torch.where(is_sph, srow[:, 7].to(torch.int32), trow[:, 10].to(torch.int32))
     ior_raw = torch.where(is_sph, srow[:, 8], trow[:, 11])
     ior = torch.where(ior_raw > 0.0, ior_raw, torch.ones_like(ior_raw))
@@ -505,7 +540,7 @@ def path_trace(s: dict, tr: Tracer, gb: dict, cam: dict, prev_cam: dict, res_pre
         thr = torch.where(rr_kill[..., None], zeros3(thr), thr)
         trace_active = alive & (~rr_kill)
         ray_o = _offset_origin(pos, offn, new_dir, eps_n)
-        if final:
+        if final and not tr.sc.has_alpha:
             sky_w = torch.where(trace_active[..., None],
                                 thr * ops.sky_radiance(new_dir, sky_top, sky_bottom), zeros3(thr))
             sky_act, sky_scale = vis_rr(state, sky_w, trace_active, 0x534B5952)
