@@ -64,7 +64,15 @@ Phases:
   5. a 64x64 Cornell frame pair rendered with the kernels on the card and
      with the plain versions on the CPU, held to the golden-image bar;
   6. the Cornell main path: one warm-up and 6 timed 1080p frames, each
-     copied to the host, with every kernel's launch count checked;
+     copied to the host, with every kernel's launch count checked (ReSTIR
+     3 a frame);
+  6r. ReSTIR: the bench frame's three `restir_direct` calls (1,802,240
+     lanes each) recorded from a frame of an orbiting camera; the kernel
+     (csrc/restir.cu) against the plain body on the card on the
+     with-reuse call, a without-reuse call and the with-reuse call in the
+     reference's weighting, every output equal bit for bit; the kernel's
+     CUDA-event ms beside its byte bound and the plain body's ms; ptxas's
+     report of csrc/restir.cu;
   6a. the mesh: K1/K2 through `wide.with_mesh` on 65,537 bench bounce
      lanes (4 blocks, 3 pad lanes) equal to the unsharded calls on every
      lane; then the bench frame through `Renderer(mesh=make_mesh())` (one
@@ -591,7 +599,9 @@ def _count_tables():
 
 
 def _reset_counts():
-    for counts in _count_tables():
+    from ilgpu_raytracing_tpu_torch.ops.cuda import restir
+
+    for counts in _count_tables() + (restir.LAUNCHES,):
         for k in counts:
             counts[k] = 0
 
@@ -609,11 +619,15 @@ def _want(**nonzero) -> dict:
     return {**{k: 0 for k in _read_counts()}, **nonzero}
 
 
-def _drive(label, r, frames, want_per_frame, around=contextlib.nullcontext):
+def _drive(label, r, frames, want_per_frame, around=contextlib.nullcontext,
+           restir_per_frame=None):
     """One warm-up and `frames` timed frames of the Renderer, each copied to
     the host, with the launch counts set to 0 just before the timed frames
     and read just after (`around()` is entered around the timed frames).
-    Returns the launch counts of the timed frames."""
+    With `restir_per_frame`, the ReSTIR kernel's launches a frame must
+    equal it. Returns the launch counts of the timed frames."""
+    from ilgpu_raytracing_tpu_torch.ops.cuda import restir
+
     cfg = r.cfg
     r.render().cpu()  # warm-up
     torch.cuda.synchronize()
@@ -645,6 +659,11 @@ def _drive(label, r, frames, want_per_frame, around=contextlib.nullcontext):
     log(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     per_frame = {k: v / frames for k, v in launches.items()}
     log(f"{label} launches per frame: {per_frame}")
+    restir_frame = restir.LAUNCHES["restir"] / frames
+    log(f"{label} launches.restir per frame: {restir_frame}")
+    if restir_per_frame is not None:
+        check(restir_frame == restir_per_frame,
+              f"{label}: {restir_frame} ReSTIR launches a frame != {restir_per_frame}")
     check(per_frame.keys() == want_per_frame.keys() and all(
         per_frame[k] > 0 if want is None else per_frame[k] == want
         for k, want in want_per_frame.items()),
@@ -667,7 +686,95 @@ def phase_main_path(dev, bench):
                  cornell_camera(1920, 1080), device=dev)
     r.sun_azimuth, r.sun_elevation = 0.3, 0.6
     return _drive("Cornell main path", r, FRAMES,
-                  _want(wide_closest=3, wide_shadow=5, sortpos=6))
+                  _want(wide_closest=3, wide_shadow=5, sortpos=6),
+                  restir_per_frame=r.cfg.max_depth)
+
+
+def _clone_args(x):
+    """A copy of a recorded argument: tensors and dataclasses of them
+    cloned, anything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if hasattr(x, "map"):
+        return x.map(lambda t: t.clone())
+    return x
+
+
+def _restir_bits_differ(a, b) -> dict:
+    """Lanes on which two (state, res, sel) results of restir_direct differ
+    in any bit, per output."""
+    (st_a, res_a, sel_a), (st_b, res_b, sel_b) = a, b
+    pairs = {"state": (st_a, st_b)}
+    pairs.update({k: (getattr(res_a, k), getattr(res_b, k)) for k in vars(res_a)})
+    pairs.update({f"sel.{k}": (sel_a[k], sel_b[k]) for k in sel_a})
+    out = {}
+    for k, (x, y) in pairs.items():
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        out[k] = int((x != y).reshape(x.shape[0], -1).any(dim=1).sum())
+    return out
+
+
+def _restir_bytes(n_lanes: int, n_pixels: int, reuse: bool) -> int:
+    """Bytes a ReSTIR call must move, each read or written once: per lane
+    state, active, normal, albedo in (33 B) and the 12 outputs (70 B); with
+    reuse also position and the two reuse masks (14 B), and per pixel its
+    pixel_idx (4 B), its G-buffer row (28 B) and previous reservoir row
+    read by the imports (32 B)."""
+    return n_lanes * (33 + 70 + (14 if reuse else 0)) + (n_pixels * 64 if reuse else 0)
+
+
+def phase_restir(dev, bench, size=(1920, 1080)):
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.ops import cuda as cu
+    from ilgpu_raytracing_tpu_torch.ops import restir
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    for line in cu.ptxas_info("restir"):
+        log(f"ptxas restir.cu: {line}")
+    r = Renderer(*size, RenderConfig(spp=2, max_depth=3), bench["scene"],
+                 _orbit_camera(0.0, *size), device=dev)
+    r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+    for k in range(2):  # fills res_prev
+        r.render()
+        r.set_camera(_orbit_camera(0.05 * (k + 1), *size))
+    calls = []
+    kernel = restir.restir_direct
+
+    def record(*args, **kw):
+        calls.append(([_clone_args(a) for a in args],
+                      {k: _clone_args(v) for k, v in kw.items()}))
+        return kernel(*args, **kw)
+
+    restir.restir_direct = record
+    try:
+        r.render()
+    finally:
+        restir.restir_direct = kernel
+    torch.cuda.synchronize()
+    check(len(calls) == r.cfg.max_depth,
+          f"ReSTIR: {len(calls)} calls in a frame of {r.cfg.max_depth} bounces")
+    check(calls[0][1]["static_reuse"] and not calls[1][1]["static_reuse"],
+          "ReSTIR: reuse is not on the first bounce alone")
+    n_px = r.in_w * r.in_h
+    arms = (("with reuse", calls[0][0], calls[0][1]),
+            ("without reuse", calls[1][0], calls[1][1]),
+            ("with reuse, reference weighting", calls[0][0],
+             {**calls[0][1], "reference_weighting": True}))
+    for label, args, kw in arms:
+        n = args[5].shape[0]
+        reuse = bool(kw["static_reuse"])
+        diff = _restir_bits_differ(kernel(*args, **kw),
+                                   restir.restir_direct_plain(*args, **kw))
+        ms_k = cuda_ms(lambda: kernel(*args, **kw), 20)
+        ms_p = cuda_ms(lambda: restir.restir_direct_plain(*args, **kw), 3)
+        nb = _restir_bytes(n, n_px, reuse)
+        b = bound(nb, 0)
+        log(f"ReSTIR {label}: {n} lanes ({int(args[4].sum())} active), lanes whose "
+            f"bits differ from the plain body's {diff}; kernel {ms_k:.4f} ms, "
+            f"{nb} bytes, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+            f"{100 * b['bound_ms'] / ms_k:.2f}% of it), plain body {ms_p:.3f} ms")
+        check(not any(diff.values()), f"ReSTIR {label}: kernel != plain body {diff}")
 
 
 def _ray_split(label, mod, ks, o, d, act, meshes) -> dict:
@@ -1413,7 +1520,8 @@ def phase_terrain_main(dev, scene):
     log(f"terrain Renderer ready in {time.monotonic() - t0:.3f} s (streaming prep)")
     depth = r.cfg.max_depth
     return _drive("terrain main path", r, TERRAIN_FRAMES,
-                  _want(stream_closest=depth, stream_shadow=depth + 2, sortpos=2 * depth))
+                  _want(stream_closest=depth, stream_shadow=depth + 2, sortpos=2 * depth),
+                  restir_per_frame=depth)
 
 
 def _courtyard(device):
@@ -2107,6 +2215,7 @@ def main() -> int:
     timed("other scenes", phase_other_scenes, dev)
     timed("Cornell parity", phase_parity, dev)
     cornell_counts = timed("Cornell main path", phase_main_path, dev, bench)
+    timed("ReSTIR", phase_restir, dev, bench)
     bench_counts = timed("bench_torch", phase_bench_torch, dev)
     mesh_counts = timed("mesh", phase_mesh, dev, bench)
     timed("parity", phase_config1_parity, dev)

@@ -1,5 +1,8 @@
 """Hand-written Hopper kernels of the frame's hot path (counterpart of the
-JAX package's ops/pallas/).
+JAX package's ops/pallas/): the trace kernels K1/K2 (`wide`), K4/K5
+(`stream`), K6 (`binary`), K7 (`treelet`), K8 (`streamtreelet`), the
+counting sort K3 (`sortpos`), and ReSTIR DI (`restir`: candidates, reuse
+and selection of a bounce in one launch, which ports no Pallas kernel).
 
 Sources live in `csrc/`; each is compiled by nvcc for sm_90a into a shared
 library with a plain C interface (`utils/build.py`: at first use, into the
@@ -94,6 +97,7 @@ def build_all() -> float:
 
     from ilgpu_raytracing_tpu_torch.ops.cuda import (
         binary,
+        restir,
         sortpos,
         stream,
         streamtreelet,
@@ -101,7 +105,7 @@ def build_all() -> float:
         wide,
     )
 
-    mods = (wide, stream, sortpos, binary, treelet, streamtreelet)
+    mods = (wide, stream, sortpos, binary, treelet, streamtreelet, restir)
     t0 = time.monotonic()
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:
         for f in [pool.submit(m.library) for m in mods]:

@@ -1,8 +1,9 @@
-"""Run the port's CUDA trace kernels (K1/K2, K4/K5, K6, K7, K8) on the CPU.
+"""Run the port's CUDA kernels (K1/K2, K4/K5, K6, K7, K8 and ReSTIR) on the CPU.
 
 A rehearsal for machines without a card or nvcc: compiles the trace sources
 (`csrc/wide_trace.cu`, `stream_trace.cu`, `binary_trace.cu`,
-`treelet_trace.cu`, `streamtreelet_trace.cu`) for the host with g++ (a stub
+`treelet_trace.cu`, `streamtreelet_trace.cu`) and `csrc/restir.cu` for
+the host with g++ (a stub
 `cuda_runtime.h`; each kernel launch becomes a loop over the grid;
 `-ffp-contract=off` in place of nvcc's `--fmad=false`), binds the results in
 place of the nvcc builds, and runs them through the wrappers' own launch
@@ -16,7 +17,9 @@ tenth of the lanes inactive, to the plain walk and to K4's hit mask at the
 same t_max; K6, K7 and K8 to their own
 plain versions bit for bit (every output field, on random want masks for
 the rounds). The boxes and primitives the counting variant
-tallies are printed. Exits 1 on a mismatch. It says nothing about speed,
+tallies are printed. The ReSTIR kernel is held to the plain
+`ops/restir.restir_direct` on seeded inputs (`restir_case`,
+`compare_restir`). Exits 1 on a mismatch. It says nothing about speed,
 and nothing about what nvcc accepts.
 
 Run from the repository root:
@@ -78,6 +81,7 @@ using std::min;
 """
 SOURCES = ("wide_trace", "stream_trace", "binary_trace", "treelet_trace",
            "streamtreelet_trace")
+RESTIR = "restir"
 # kernel<...><<<blocks, THREADS, smem, s>>>(args);  ->  a loop over the grid
 LAUNCH = re.compile(r"(\w+<[^>]*>)<<<blocks, THREADS, \w+, s>>>\((.*?)\);", re.S)
 LOOP = (r"for (unsigned b_ = 0; b_ < unsigned(blocks); ++b_) "
@@ -85,13 +89,14 @@ LOOP = (r"for (unsigned b_ = 0; b_ < unsigned(blocks); ++b_) "
         r"blockDim.x = THREADS; threadIdx.x = t_; \1(\2); }")
 
 
-def host_libraries() -> dict[str, ctypes.CDLL]:
-    """g++ builds of the trace sources, under _build/host/."""
-    out_dir = os.path.join(BUILD_DIR, "host")
+def host_libraries(sources=SOURCES, out_dir=None) -> dict[str, ctypes.CDLL]:
+    """g++ builds of `sources` (csrc/<name>.cu), under `out_dir` (default
+    _build/host/; a caller running beside another gives its own)."""
+    out_dir = out_dir or os.path.join(BUILD_DIR, "host")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "cuda_runtime.h"), "w") as f:
         f.write(STUB)
-    for name in cu.HEADERS + tuple(src + ".cu" for src in SOURCES):
+    for name in cu.HEADERS + tuple(src + ".cu" for src in sources):
         with open(os.path.join(cu.CSRC, name)) as f:
             src = LAUNCH.sub(LOOP, f.read())
         if "<<<" in src:
@@ -100,7 +105,7 @@ def host_libraries() -> dict[str, ctypes.CDLL]:
         with open(os.path.join(out_dir, host_name), "w") as f:
             f.write(src)
     libs = {}
-    for name in SOURCES:
+    for name in sources:
         so = os.path.join(out_dir, f"lib{name}.so")
         subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
                         "-fPIC", "-I", out_dir, "-o", so,
@@ -257,9 +262,130 @@ def primary_hits(mod, ks, o, d):
     return decode(ks, o, d, t, pp)
 
 
+def restir_case(width: int, height: int, reps: int, pixel_major: bool, seed: int,
+                **kw) -> dict:
+    """Seeded keyword arguments of `ops/restir.restir_direct` on CPU tensors:
+    a width x height G-buffer of a wavy surface of four objects in front of
+    the default camera (some pixels missed, obj_id -1), seeded previous
+    reservoirs, `reps` sample views of every pixel (stacked tiles, or a
+    pixel's views adjacent with `pixel_major`), a tenth of the lanes
+    inactive, the reuse masks on 80% of the active lanes, and a previous
+    camera moved sideways so that reprojection and the spatial neighbours
+    run off the image's edges. `kw` overrides any argument."""
+    from ilgpu_raytracing_tpu_torch.models.camera import Camera
+    from ilgpu_raytracing_tpu_torch.ops import integrator, layout, rays, restir, sky
+    from ilgpu_raytracing_tpu_torch.utils import vec
+
+    rng = np.random.default_rng(seed)
+    g = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt)
+    cam = Camera.create(width, height)
+    p = width * height
+    px, py = layout.xy_from_position(torch.arange(p, dtype=torch.int32), width, height)
+    o, d = rays.generate_rays(cam, (px.float() + 0.5) / width, (py.float() + 0.5) / height)
+    t = 2.5 + 0.4 * torch.sin(px.float() * 0.35) * torch.cos(py.float() * 0.2)
+    pos = (o + d * t[:, None]).contiguous()
+    normal = vec.normalize(-d + 0.25 * g(rng.normal(size=(p, 3))))
+    obj = (px * 2 // width + 2 * (py * 2 // height)).to(torch.int32)
+    obj = torch.where(g(rng.random(p) < 0.05, torch.bool), -1, obj)
+    gb = integrator.GBuffer(
+        pos=pos, normal=normal, albedo=g(rng.uniform(0, 1, (p, 3))),
+        shading=torch.zeros(p, dtype=torch.int32), ior=torch.zeros(p), obj_id=obj,
+        hit=obj >= 0)
+    wi = rng.normal(size=(p, 3))
+    prev = restir.Reservoirs(
+        L=g(rng.uniform(0, 3, (p, 3))), wi=g(wi / np.linalg.norm(wi, axis=1, keepdims=True)),
+        pdf=g(rng.uniform(0.05, 1, p)), w=g(rng.uniform(0.0, 1, p)),
+        w_sum=g(rng.uniform(0.0, 5, p)), m=g(rng.integers(0, 20, p), torch.int32),
+        light_id=g(rng.integers(1, 3, p), torch.int32), W=g(rng.uniform(0.0, 2, p)))
+    lanes = reps * p
+
+    def tile(x):
+        return x.repeat_interleave(reps, dim=0) if pixel_major else x.repeat(
+            (reps,) + (1,) * (x.dim() - 1))
+
+    active = g(rng.random(lanes) < 0.9, torch.bool)
+    args = dict(
+        scene_unused=None, gb=gb, res_prev=prev,
+        state=g(rng.integers(1, 2 ** 32, size=lanes) | 1, torch.int64), active=active,
+        pos=tile(gb.pos), n=tile(gb.normal), albedo=tile(gb.albedo),
+        pixel_idx=tile(torch.arange(p, dtype=torch.int32)), width=width, height=height,
+        frame=int(rng.integers(0, 2 ** 31)), prev_cam=cam.translate([0.04, 0.02, 0.0]),
+        cam_origin=g(cam.origin), sun_dir=sky.sun_direction(0.3, 0.6),
+        sun_radiance=(10.0, 9.5, 9.0), sky_top=(0.5, 0.7, 1.0), sky_bottom=(1.0, 1.0, 1.0),
+        enable_temporal=active & g(rng.random(lanes) < 0.8, torch.bool),
+        enable_spatial=active & g(rng.random(lanes) < 0.8, torch.bool),
+        local_candidates=8, delta_candidates=1, reps=reps, reps_pixel_major=pixel_major)
+    args.update(kw)
+    return args
+
+
+# Float outputs of the host build against the plain version on the CPU:
+# PyTorch's CPU float32 sqrt, cos and sin are not the C library's to the
+# last bit (its sqrt is not always correctly rounded), so a local
+# candidate's direction, and all that is computed from it, may differ by a
+# few ulp (the largest relative difference seen over 24 seeded cases is
+# 1.4e-6); every integer output is exact.
+RESTIR_RTOL = 1e-5
+RESTIR_ATOL = 1e-6
+
+
+def compare_restir(args: dict) -> dict:
+    """The kernel (`ops/restir.restir_direct_kernel`, a host build bound in
+    place of the nvcc one) and `restir_direct_plain` on `args`. Returns per
+    output the lanes that differ: integers (state, m, light_id, ok, is_sun)
+    at all, floats beyond RESTIR_RTOL / RESTIR_ATOL."""
+    from ilgpu_raytracing_tpu_torch.ops import restir
+
+    (st_p, res_p, sel_p), (st_k, res_k, sel_k) = (
+        restir.restir_direct_plain(**args), restir.restir_direct_kernel(**args))
+    pairs = {"state": (st_p, st_k)}
+    pairs.update({k: (getattr(res_p, k), getattr(res_k, k)) for k in vars(res_p)})
+    pairs.update({f"sel.{k}": (sel_p[k], sel_k[k]) for k in sel_p})
+    out = {}
+    for k, (a, b) in pairs.items():
+        if a.dtype.is_floating_point:
+            bad = ~torch.isclose(b, a, rtol=RESTIR_RTOL, atol=RESTIR_ATOL, equal_nan=True)
+        else:
+            bad = a != b
+        out[k] = int(bad.reshape(a.shape[0], -1).any(dim=1).sum())
+    return out
+
+
+def check_restir(label: str, args: dict) -> bool:
+    """compare_restir, printed; True when no output differs."""
+    diff = compare_restir(args)
+    ok = not any(diff.values())
+    print(f"ReSTIR {label}: {args['state'].shape[0]} lanes, lanes that differ "
+          f"{diff} -> {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+RESTIR_CASES = {
+    "reuse": dict(width=64, height=64, reps=1, pixel_major=False),
+    "reference_weighting": dict(width=64, height=64, reps=1, pixel_major=False,
+                                reference_weighting=True),
+    "candidates_only": dict(width=64, height=64, reps=1, pixel_major=False,
+                            static_reuse=False),
+    "candidates_only_reference": dict(width=64, height=64, reps=1, pixel_major=False,
+                                      static_reuse=False, reference_weighting=True),
+    "reps2_tiles": dict(width=64, height=64, reps=2, pixel_major=False),
+    "reps2_pixel_major": dict(width=64, height=64, reps=2, pixel_major=True),
+    "reps2_pixel_major_reference": dict(width=64, height=64, reps=2, pixel_major=True,
+                                        reference_weighting=True),
+    "row_major_image": dict(width=40, height=24, reps=2, pixel_major=False),
+}
+
+
+def restir_args(case: str, seed: int) -> dict:
+    """restir_case's arguments for one of RESTIR_CASES."""
+    kw = dict(RESTIR_CASES[case])
+    return restir_case(kw.pop("width"), kw.pop("height"), kw.pop("reps"),
+                       kw.pop("pixel_major"), seed, **kw)
+
+
 def main() -> int:
     torch.set_num_threads(1)  # one thread: the plain versions run as in the tests
-    libs = host_libraries()
+    libs = host_libraries(SOURCES + (RESTIR,))
     cu.load_kernel_library = lambda name: (libs[name], 0.0)
     cu.stream_ptr = lambda t: None
 
@@ -308,6 +434,8 @@ def main() -> int:
             ok &= check_anyhit(f"{label} bounce", ks, bo, bd, 4)
             sts = streamtreelet.prepare_treelets_stream(ks, 8)
             ok &= check_round(f"{label} bounce K8", streamtreelet, sts, bo, bd, 1, 3)
+    for case in RESTIR_CASES:
+        ok &= check_restir(case, restir_args(case, 5))
     return 0 if ok else 1
 
 

@@ -18,6 +18,7 @@ import torch
 
 from ilgpu_raytracing_tpu_torch.ops import layout
 from ilgpu_raytracing_tpu_torch.ops import sky as sky_ops
+from ilgpu_raytracing_tpu_torch.ops.cuda import restir as restir_kernel
 from ilgpu_raytracing_tpu_torch.ops.sampling import (
     INV_PI,
     cos_hemisphere_pdf,
@@ -274,7 +275,51 @@ def restir_direct(
     pixel and expanded: stacked sample tiles ([tile0; tile1; ...]) by
     default, a pixel's samples adjacent with `reps_pixel_major` (the
     integrator's lane layout, config.spp_pixel_major). `frame` is the host
-    frame index."""
+    frame index.
+
+    On CUDA tensors this is `restir_direct_kernel`, elsewhere
+    `restir_direct_plain`; the two are equal bit for bit on the card."""
+    fn = restir_direct_kernel if pos.device.type == "cuda" else restir_direct_plain
+    return fn(
+        scene_unused, gb, res_prev, state, active, pos, n, albedo, pixel_idx, width,
+        height, frame, prev_cam, cam_origin, sun_dir, sun_radiance, sky_top,
+        sky_bottom, enable_temporal, enable_spatial, local_candidates,
+        delta_candidates, static_reuse, reference_weighting, reps, reps_pixel_major,
+    )
+
+
+def restir_direct_kernel(
+    scene_unused, gb, res_prev: Reservoirs, state, active, pos, n, albedo,
+    pixel_idx, width: int, height: int, frame, prev_cam, cam_origin, sun_dir,
+    sun_radiance, sky_top, sky_bottom, enable_temporal, enable_spatial,
+    local_candidates: int = 8, delta_candidates: int = 1,
+    static_reuse: bool = True, reference_weighting: bool = False,
+    reps: int = 1, reps_pixel_major: bool = False,
+):
+    """`restir_direct` as one launch of csrc/restir.cu (ops/cuda/restir.py)."""
+    total = local_candidates + delta_candidates
+    state, fields, ok, contrib, is_sun = restir_kernel.launch(
+        gb, res_prev, state, active, pos, n, albedo, pixel_idx, width, height,
+        frame, prev_cam, cam_origin, sun_dir, sun_radiance, sky_top, sky_bottom,
+        enable_temporal, enable_spatial, local_candidates,
+        float(local_candidates) / float(total),
+        max(EPS_MIN, float(delta_candidates) / float(total)), static_reuse,
+        reference_weighting, reps, reps_pixel_major,
+    )
+    res = Reservoirs(*fields)
+    return state, res, dict(ok=ok, wi=res.wi, contrib=contrib, is_sun=is_sun)
+
+
+def restir_direct_plain(
+    scene_unused, gb, res_prev: Reservoirs, state, active, pos, n, albedo,
+    pixel_idx, width: int, height: int, frame, prev_cam, cam_origin, sun_dir,
+    sun_radiance, sky_top, sky_bottom, enable_temporal, enable_spatial,
+    local_candidates: int = 8, delta_candidates: int = 1,
+    static_reuse: bool = True, reference_weighting: bool = False,
+    reps: int = 1, reps_pixel_major: bool = False,
+):
+    """`restir_direct` in PyTorch operations, on any device: the CPU path and
+    the definition the kernel is held to."""
     total = local_candidates + delta_candidates
     mix_local = float(local_candidates) / float(total)
     mix_delta = float(delta_candidates) / float(total)

@@ -8,8 +8,8 @@ presentation (device -> host -> PNG).
 The Renderer runs on the device it is given -- the card unless the caller
 asks for the CPU -- and nowhere else. On CUDA it traces with the
 hand-written kernels (K1/K2 wide walks up to 150k triangles, K4/K5
-streaming walks up to 4M, K3 counting sort) and refuses what they do not
-cover; on the CPU the same wrappers run their plain versions. It never
+streaming walks up to 4M, K3 counting sort, and ReSTIR DI in one launch a
+bounce, csrc/restir.cu) and refuses what they do not cover; on the CPU the same wrappers run their plain versions. It never
 moves work to another device or swaps a kernel for its plain version on
 its own. A caller may set `r.wscene = binary.prepare_binary(r.scene)`
 (ops/cuda/binary.py) after construction, as the JAX package's callers set

@@ -18,7 +18,9 @@ One module-level registry, `REGISTRY`, holds both.
   label is the name, but for a kernel span `kernel/<its LAUNCHES key>`: the
   profiler's trace export renames an annotation called `kernel`.
 * **Counters.** Named dicts of integers (`counter`): each kernel module's
-  `LAUNCHES` (card launches by kernel name), `parallel/sharding.py`'s
+  `LAUNCHES` (card launches by kernel name: the six trace dicts, K3's
+  `launches.sortpos` and ReSTIR's `launches.restir`, which has no `kernel`
+  span: its launch sits in the integrator's `restir` span), `parallel/sharding.py`'s
   `GATHER_BYTES`, and `LANES`, the lanes handed to each kernel's
   dispatch wrapper (`kernel`), on the card and on the CPU alike.
 
