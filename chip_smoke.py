@@ -51,7 +51,8 @@ Phases:
      key in one bin, descending keys, n = 1, 1,000 and 1,802,241, bins = 1
      and 384; timed beside torch.argsort(stable=True) at 129 and 258 bins;
      a key out of range must fail the kernel's device-side assert (in a
-     child process); ptxas's report of csrc/sortpos.cu;
+     child process); ptxas's report of csrc/sortpos.cu and of
+     csrc/sortkey.cu (the sort key);
   4. K1 closest hit / K2 any-hit vs the plain skip-index walk on the bench
      scene: primary rays and 1,802,240 sorted bounce rays, held to the bar
      of tests/test_wide_kernel.py (hit masks agree, relative t mismatch
@@ -65,7 +66,11 @@ Phases:
      with the plain versions on the CPU, held to the golden-image bar;
   6. the Cornell main path: one warm-up and 6 timed 1080p frames, each
      copied to the host, with every kernel's launch count checked (ReSTIR
-     3 a frame);
+     3 a frame; the sort key 6 Morton launches, as many as K3's); then one
+     more frame whose 6 sorted calls are recorded: the sort-key kernel
+     (csrc/sortkey.cu) equal to the plain key on every lane of each, and
+     on the first (1,802,240 lanes) the Morton and the octant key timed by
+     CUDA events beside their byte bound and the plain key's ms;
   6r. ReSTIR: the bench frame's three `restir_direct` calls (1,802,240
      lanes each) recorded from a frame of an orbiting camera; the kernel
      (csrc/restir.cu) against the plain body on the card on the
@@ -156,7 +161,12 @@ Phases:
      integrator with a StreamScene, kernels on the card vs plain on the
      CPU, held to the golden-image bar;
  18. the terrain main path: one warm-up and 3 timed 1080p frames, each
-     copied to the host, with every kernel's launch count checked;
+     copied to the host, with every kernel's launch count checked (the
+     sort key 16 treelet launches, as many as K3's); then one more frame
+     whose 16 sorted calls are recorded: the sort-key kernel equal to the
+     plain key on every lane of each, and on the first (1,802,240 lanes,
+     32 boxes) the treelet key timed beside its byte bound and the plain
+     key's ms;
  19. K1/K2 vs the plain walk on the courtyard's 1280x720 primary rays (the
      opaque tables, has_alpha off, barycentrics on), at the bar of phase 4;
      K1 timed there, with its boxes, primitives and bound;
@@ -332,8 +342,9 @@ def phase_k3(dev, results):
     from ilgpu_raytracing_tpu_torch.ops import cuda as cu
     from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos
 
-    for line in cu.ptxas_info("sortpos"):
-        log(f"ptxas sortpos.cu: {line}")
+    for name in ("sortpos", "sortkey"):
+        for line in cu.ptxas_info(name):
+            log(f"ptxas {name}.cu: {line}")
     for label, keys, bins in _k3_key_sets(np.random.default_rng(7)):
         kt = torch.as_tensor(keys.astype(np.int32), device=dev)
         got = sortpos.counting_pos(kt, bins)
@@ -599,9 +610,9 @@ def _count_tables():
 
 
 def _reset_counts():
-    from ilgpu_raytracing_tpu_torch.ops.cuda import restir
+    from ilgpu_raytracing_tpu_torch.ops.cuda import restir, sortkey
 
-    for counts in _count_tables() + (restir.LAUNCHES,):
+    for counts in _count_tables() + (restir.LAUNCHES, sortkey.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -620,13 +631,16 @@ def _want(**nonzero) -> dict:
 
 
 def _drive(label, r, frames, want_per_frame, around=contextlib.nullcontext,
-           restir_per_frame=None):
+           restir_per_frame=None, sortkey_per_frame=None):
     """One warm-up and `frames` timed frames of the Renderer, each copied to
     the host, with the launch counts set to 0 just before the timed frames
     and read just after (`around()` is entered around the timed frames).
     With `restir_per_frame`, the ReSTIR kernel's launches a frame must
-    equal it. Returns the launch counts of the timed frames."""
-    from ilgpu_raytracing_tpu_torch.ops.cuda import restir
+    equal it; the sort-key kernel's must equal K3's (every sorted call
+    computes one key), and with `sortkey_per_frame` its launches of each
+    variant (the other variants 0). Returns the launch counts of the timed
+    frames."""
+    from ilgpu_raytracing_tpu_torch.ops.cuda import restir, sortkey
 
     cfg = r.cfg
     r.render().cpu()  # warm-up
@@ -664,6 +678,14 @@ def _drive(label, r, frames, want_per_frame, around=contextlib.nullcontext,
     if restir_per_frame is not None:
         check(restir_frame == restir_per_frame,
               f"{label}: {restir_frame} ReSTIR launches a frame != {restir_per_frame}")
+    sortkey_frame = {k: v / frames for k, v in sortkey.LAUNCHES.items()}
+    log(f"{label} launches.sortkey per frame: {sortkey_frame}")
+    check(sum(sortkey_frame.values()) == per_frame["sortpos"],
+          f"{label}: sort-key launches {sortkey_frame} != K3's {per_frame['sortpos']}")
+    if sortkey_per_frame is not None:
+        want = {k: sortkey_per_frame.get(k, 0) for k in sortkey.LAUNCHES}
+        check(sortkey_frame == want,
+              f"{label}: sort-key launches a frame {sortkey_frame} != {want}")
     check(per_frame.keys() == want_per_frame.keys() and all(
         per_frame[k] > 0 if want is None else per_frame[k] == want
         for k, want in want_per_frame.items()),
@@ -685,9 +707,69 @@ def phase_main_path(dev, bench):
     r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=3), bench["scene"],
                  cornell_camera(1920, 1080), device=dev)
     r.sun_azimuth, r.sun_elevation = 0.3, 0.6
-    return _drive("Cornell main path", r, FRAMES,
-                  _want(wide_closest=3, wide_shadow=5, sortpos=6),
-                  restir_per_frame=r.cfg.max_depth)
+    counts = _drive("Cornell main path", r, FRAMES,
+                    _want(wide_closest=3, wide_shadow=5, sortpos=6),
+                    restir_per_frame=r.cfg.max_depth,
+                    sortkey_per_frame=dict(morton=2 * r.cfg.max_depth))
+    _sortkey_bar("Cornell", r)
+    return counts
+
+
+def _sort_key_bytes(n: int, morton_bounds, treelet_bounds) -> int:
+    """Bytes a sort-key call must move, each once: per lane o, d, active in
+    and the key out (29 B; the octant key reads no origin, 17 B), and the
+    boxes or the Morton bounds."""
+    if treelet_bounds is not None:
+        return 29 * n + treelet_bounds.numel() * 4
+    return 29 * n + 24 if morton_bounds is not None else 17 * n
+
+
+def _sortkey_bar(label, r):
+    """The sorted calls of one frame of `r`, recorded at `sort._ray_perm`:
+    the kernel's key (csrc/sortkey.cu) equal to the plain key's bit for bit
+    on every call; on the first call (the first bounce's closest-hit sort)
+    the kernel and the plain key timed by CUDA events beside the byte bound,
+    and on a Morton frame the octant variant checked and timed too."""
+    from ilgpu_raytracing_tpu_torch.ops import sort
+    from ilgpu_raytracing_tpu_torch.ops.cuda import sortkey
+
+    calls = []
+    real = sort._ray_perm
+
+    def record(o, d, active, morton_bounds, treelet_bounds=None):
+        calls.append((o.clone(), d.clone(), active.clone(), morton_bounds, treelet_bounds))
+        return real(o, d, active, morton_bounds, treelet_bounds)
+
+    sort._ray_perm = record
+    try:
+        r.render().cpu()
+    finally:
+        sort._ray_perm = real
+    torch.cuda.synchronize()
+
+    def differ(args):
+        return int((sortkey.ray_key(*args) != sort.ray_key_plain(*args)).sum())
+
+    diff = [differ(args) for args in calls]
+    check(not any(diff), f"{label} sort key: keys differ from the plain key's {diff}")
+    log(f"{label} sort key: {len(calls)} sorted calls of a frame "
+        f"({[c[0].shape[0] for c in calls]} lanes), the kernel's key equal to the "
+        f"plain key's on every lane")
+    o, d, act, mb, tb = calls[0]
+    arms = [("treelet" if tb is not None else "Morton", mb, tb)]
+    if tb is None:
+        arms.append(("octant", None, None))
+        check(differ((o, d, act, None, None)) == 0, f"{label} octant key differs")
+    n = o.shape[0]
+    for name, mb_, tb_ in arms:
+        ms_k = cuda_ms(lambda: sortkey.ray_key(o, d, act, mb_, tb_), 20)
+        ms_p = cuda_ms(lambda: sort.ray_key_plain(o, d, act, mb_, tb_), 5)
+        nb = _sort_key_bytes(n, mb_, tb_)
+        b = bound(nb, 0)
+        log(f"{label} sort key, {name}: {n} lanes ({int(act.sum())} live"
+            f"{f', {tb_.shape[0]} boxes' if tb_ is not None else ''}): kernel "
+            f"{ms_k:.4f} ms, {nb} bytes, bound {b['bound_ms']:.4f} ms "
+            f"({100 * b['bound_ms'] / ms_k:.2f}% of it), plain key {ms_p:.4f} ms")
 
 
 def _clone_args(x):
@@ -1519,9 +1601,11 @@ def phase_terrain_main(dev, scene):
     check(isinstance(r.wscene, stream.StreamScene), "terrain did not get a StreamScene")
     log(f"terrain Renderer ready in {time.monotonic() - t0:.3f} s (streaming prep)")
     depth = r.cfg.max_depth
-    return _drive("terrain main path", r, TERRAIN_FRAMES,
-                  _want(stream_closest=depth, stream_shadow=depth + 2, sortpos=2 * depth),
-                  restir_per_frame=depth)
+    counts = _drive("terrain main path", r, TERRAIN_FRAMES,
+                    _want(stream_closest=depth, stream_shadow=depth + 2, sortpos=2 * depth),
+                    restir_per_frame=depth, sortkey_per_frame=dict(treelet=2 * depth))
+    _sortkey_bar("terrain", r)
+    return counts
 
 
 def _courtyard(device):

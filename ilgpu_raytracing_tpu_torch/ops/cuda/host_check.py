@@ -1,9 +1,10 @@
-"""Run the port's CUDA kernels (K1/K2, K4/K5, K6, K7, K8 and ReSTIR) on the CPU.
+"""Run the port's CUDA kernels (K1/K2, K4/K5, K6, K7, K8, ReSTIR and the
+sort key) on the CPU.
 
 A rehearsal for machines without a card or nvcc: compiles the trace sources
 (`csrc/wide_trace.cu`, `stream_trace.cu`, `binary_trace.cu`,
-`treelet_trace.cu`, `streamtreelet_trace.cu`) and `csrc/restir.cu` for
-the host with g++ (a stub
+`treelet_trace.cu`, `streamtreelet_trace.cu`), `csrc/restir.cu` and
+`csrc/sortkey.cu` for the host with g++ (a stub
 `cuda_runtime.h`; each kernel launch becomes a loop over the grid;
 `-ffp-contract=off` in place of nvcc's `--fmad=false`), binds the results in
 place of the nvcc builds, and runs them through the wrappers' own launch
@@ -19,8 +20,12 @@ plain versions bit for bit (every output field, on random want masks for
 the rounds). The boxes and primitives the counting variant
 tallies are printed. The ReSTIR kernel is held to the plain
 `ops/restir.restir_direct` on seeded inputs (`restir_case`,
-`compare_restir`). Exits 1 on a mismatch. It says nothing about speed,
-and nothing about what nvcc accepts.
+`compare_restir`). The sort key is held to the plain
+`ops/sort.ray_key_plain` bit for bit in its three variants (`sortkey_case`,
+`compare_sortkey`: treelet boxes of the small terrain, the six-instance
+sphere scene and a hand-made table with ties, origins inside a box and
+rays that miss; zero, NaN and inf components). Exits 1 on a mismatch. It
+says nothing about speed, and nothing about what nvcc accepts.
 
 Run from the repository root:
     python3 -m ilgpu_raytracing_tpu_torch.ops.cuda.host_check
@@ -82,6 +87,7 @@ using std::min;
 SOURCES = ("wide_trace", "stream_trace", "binary_trace", "treelet_trace",
            "streamtreelet_trace")
 RESTIR = "restir"
+SORTKEY = "sortkey"
 # kernel<...><<<blocks, THREADS, smem, s>>>(args);  ->  a loop over the grid
 LAUNCH = re.compile(r"(\w+<[^>]*>)<<<blocks, THREADS, \w+, s>>>\((.*?)\);", re.S)
 LOOP = (r"for (unsigned b_ = 0; b_ < unsigned(blocks); ++b_) "
@@ -383,9 +389,126 @@ def restir_args(case: str, seed: int) -> dict:
                        kw.pop("pixel_major"), seed, **kw)
 
 
+# Hand-made treelet boxes (lo xyz, hi xyz): boxes 1 and 3 share the entry
+# face x = 4 over y, z in [-1, 1], so a ray along +x from x < 4 enters both
+# at the same t and box 1 must win; box 0 holds the origins of
+# `_edge_rays`'s inside rays (their entry is the 1e-4 floor); box 2 lies off
+# every edge ray's path.
+HAND_BOXES = ((-12.0, -12.0, -12.0, -8.0, -8.0, -8.0),
+              (4.0, -1.0, -1.0, 6.0, 1.0, 1.0),
+              (20.0, 20.0, 20.0, 21.0, 21.0, 21.0),
+              (4.0, -2.0, -2.0, 5.0, 2.0, 2.0))
+
+
+def _edge_rays():
+    """(o, d) rows that reach the key's corners: axis rays onto the tied
+    faces, origins inside box 0, zero, signed-zero, subnormal, NaN and inf
+    direction components, NaN and inf origins, and a ray that starts on a
+    face."""
+    nan, inf, sub = float("nan"), float("inf"), 1e-40
+    rows = [
+        ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0)),  # tie of boxes 1 and 3 at t = 4
+        ((0.0, 0.5, -0.5), (2.0, 0.0, -0.0)),
+        ((-10.0, -10.0, -10.0), (1.0, 1.0, 1.0)),  # inside box 0
+        ((-9.0, -11.0, -10.0), (0.0, 0.0, -1.0)),
+        ((4.0, 0.0, 0.0), (1.0, 0.0, 0.0)),  # on box 1's and 3's face
+        ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0)),
+        ((0.0, 0.0, 0.0), (-0.0, -0.0, -0.0)),
+        ((0.0, 0.0, 0.0), (sub, 0.0, 0.0)),  # 1 / d overflows to inf
+        ((0.0, 0.0, 0.0), (sub, sub, -sub)),
+        ((nan, 0.0, 0.0), (1.0, 0.0, 0.0)),
+        ((0.0, 0.0, 0.0), (nan, 0.3, 0.1)),
+        ((inf, 0.0, 0.0), (-1.0, 0.0, 0.0)),
+        ((-inf, -inf, -inf), (1.0, 1.0, 1.0)),
+        ((0.0, 0.0, 0.0), (inf, 0.0, 0.0)),
+        ((0.0, 0.0, 0.0), (-inf, inf, -inf)),
+        ((1e30, 1e30, 1e30), (-1.0, -1.0, -1.0)),
+    ]
+    o = torch.tensor([r[0] for r in rows], dtype=torch.float32)
+    d = torch.tensor([r[1] for r in rows], dtype=torch.float32)
+    return o, d
+
+
+def sortkey_rays(lo, hi, n: int, seed: int):
+    """n seeded rays whose origins lie in the box [lo, hi] grown by a
+    quarter of its size a side, with unit-normal directions; a tenth of the
+    lanes inactive, some direction components zeroed, and `_edge_rays`
+    appended twice (live, then dead)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    pad = 0.25 * (hi - lo)
+    o = rng.uniform(lo - pad, hi + pad, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d[rng.random((n, 3)) < 0.05] = 0.0
+    eo, ed = _edge_rays()
+    o = torch.cat([torch.as_tensor(o, dtype=torch.float32), eo, eo])
+    d = torch.cat([torch.as_tensor(d, dtype=torch.float32), ed, ed])
+    act = torch.as_tensor(np.concatenate([rng.random(n) >= 0.1, np.ones(len(eo), bool),
+                                          np.zeros(len(eo), bool)]))
+    return o.contiguous(), d.contiguous(), act
+
+
+def sortkey_case(case: str, seed: int, n: int = 4000) -> dict:
+    """Keyword arguments of `ops/sort.ray_key_plain` for one of
+    SORTKEY_CASES, on CPU tensors: its scene's treelet boxes (or Morton
+    bounds, or neither) and `sortkey_rays` over the scene's bounds."""
+    from ilgpu_raytracing_tpu_torch.models import cornell, terrain
+    from ilgpu_raytracing_tpu_torch.models.bvh import cut_scene_treelets
+    from ilgpu_raytracing_tpu_torch.models.scene import build_default_scene
+
+    scene_of = {
+        "terrain": lambda: terrain.build_terrain_scene(grid_x=64, grid_z=32,
+                                                       device="cpu")[1],
+        "spheres": lambda: build_default_scene(single_instance=False, device="cpu")[1],
+        "cornell": lambda: cornell.build_cornell_scene(tess=4, sphere_tess=(8, 12),
+                                                       device="cpu")[1],
+    }
+    scene_name, variant = SORTKEY_CASES[case]
+    treelet = morton = None
+    if scene_name == "hand":
+        treelet = torch.tensor(HAND_BOXES, dtype=torch.float32)
+        lo, hi = treelet[:, :3].amin(0), treelet[:, 3:].amax(0)
+    else:
+        scene = scene_of[scene_name]()
+        lo, hi = torch.amin(scene.inst_bmin, dim=0), torch.amax(scene.inst_bmax, dim=0)
+        if variant == "treelet":
+            treelet = torch.as_tensor(cut_scene_treelets(scene, 32), dtype=torch.float32)
+        elif variant == "morton":
+            morton = (lo, 1.0 / torch.clamp(hi - lo, min=1e-6))
+    o, d, act = sortkey_rays(lo.numpy(), hi.numpy(), n, seed)
+    return dict(o=o, d=d, active=act, morton_bounds=morton, treelet_bounds=treelet)
+
+
+SORTKEY_CASES = {  # case: (scene, key variant)
+    "terrain_treelet": ("terrain", "treelet"),  # 32 boxes
+    "spheres_treelet": ("spheres", "treelet"),  # 6 boxes
+    "hand_treelet": ("hand", "treelet"),
+    "cornell_morton": ("cornell", "morton"),
+    "cornell_octant": ("cornell", "octant"),
+}
+
+
+def compare_sortkey(args: dict) -> int:
+    """Lanes on which the kernel's key (`ops/cuda/sortkey.ray_key`, a host
+    build bound in place of the nvcc one) differs from
+    `ops/sort.ray_key_plain`'s on `args`."""
+    from ilgpu_raytracing_tpu_torch.ops import sort
+    from ilgpu_raytracing_tpu_torch.ops.cuda import sortkey
+
+    return int((sortkey.ray_key(**args) != sort.ray_key_plain(**args)).sum())
+
+
+def check_sortkey(case: str, args: dict) -> bool:
+    """compare_sortkey, printed; True when every key is equal."""
+    diff = compare_sortkey(args)
+    print(f"sort key {case}: {args['o'].shape[0]} rays, keys that differ {diff} -> "
+          f"{'ok' if diff == 0 else 'FAIL'}", flush=True)
+    return diff == 0
+
+
 def main() -> int:
     torch.set_num_threads(1)  # one thread: the plain versions run as in the tests
-    libs = host_libraries(SOURCES + (RESTIR,))
+    libs = host_libraries(SOURCES + (RESTIR, SORTKEY))
     cu.load_kernel_library = lambda name: (libs[name], 0.0)
     cu.stream_ptr = lambda t: None
 
@@ -436,6 +559,8 @@ def main() -> int:
             ok &= check_round(f"{label} bounce K8", streamtreelet, sts, bo, bd, 1, 3)
     for case in RESTIR_CASES:
         ok &= check_restir(case, restir_args(case, 5))
+    for case in SORTKEY_CASES:
+        ok &= check_sortkey(case, sortkey_case(case, 6))
     return 0 if ok else 1
 
 

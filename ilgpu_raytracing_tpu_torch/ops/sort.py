@@ -4,9 +4,11 @@ Rays are ordered by a stable counting sort over a small key -- (alive,
 direction octant, 4-bit origin Morton code), 129 bins with every dead lane
 in the tail bin -- so rays that walk the same part of the tree sit next to
 each other. Streaming scenes take the destination-treelet key instead
-(octant * T + the treelet box the ray enters first, 8T+2 bins). Per-lane
-trace results never depend on the order; the sorted results are restored
-to the original lane order afterwards.
+(octant * T + the treelet box the ray enters first, 8T+2 bins). On the
+card one launch of csrc/sortkey.cu computes the key; on the CPU the plain
+PyTorch formulation below does. Per-lane trace results never depend on the
+order; the sorted results are restored to the original lane order
+afterwards.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import dataclasses
 
 import torch
 
-from ilgpu_raytracing_tpu_torch.ops.cuda import sortpos
+from ilgpu_raytracing_tpu_torch.ops.cuda import sortkey, sortpos
 from ilgpu_raytracing_tpu_torch.utils import telemetry
 
 _BINS = 16
@@ -72,9 +74,14 @@ def _slab_entry(bounds, o, d):
     return torch.where(hi >= lo, lo, torch.full_like(lo, float("inf")))
 
 
-def _ray_perm(o, d, active, morton_bounds, treelet_bounds=None):
-    """(perm, pos) ordering rays by (alive, octant[, origin morton |
-    destination treelet]).
+def _bins(morton_bounds, treelet_bounds) -> int:
+    if treelet_bounds is not None:
+        return 8 * treelet_bounds.shape[0] + 2
+    return _BINS if morton_bounds is None else 129
+
+
+def ray_key_plain(o, d, active, morton_bounds, treelet_bounds=None):
+    """The int32 key `_ray_perm` sorts by (`_bins` bins).
 
     With `treelet_bounds` (a (T,6) world-space box table,
     models/bvh.cut_scene_treelets) the key is octant*T + the treelet whose
@@ -82,7 +89,8 @@ def _ray_perm(o, d, active, morton_bounds, treelet_bounds=None):
     dead lanes to bin 8T+1. Otherwise, with `morton_bounds` = (bmin,
     inv_ext) the key is octant*16 + morton4 for live lanes and 128 for
     every dead lane (129 bins); without either, the 16-bin octant/alive
-    key."""
+    key. The CPU path, and the definition that csrc/sortkey.cu is held to
+    bit for bit."""
     if treelet_bounds is not None:
         t_lo = _slab_entry(treelet_bounds, o, d)
         tid = torch.argmin(t_lo, dim=1).to(torch.int32)
@@ -90,13 +98,20 @@ def _ray_perm(o, d, active, morton_bounds, treelet_bounds=None):
         groups = 8 * treelet_bounds.shape[0]
         key = torch.where(covered, _octant3(d) * treelet_bounds.shape[0] + tid,
                           groups)
-        key = torch.where(active, key, groups + 1)
-        return _perm_from_key(key, groups + 2)
+        return torch.where(active, key, groups + 1)
     if morton_bounds is None:
-        return _perm_from_key(octant_alive_key(d, active))
+        return octant_alive_key(d, active)
     bmin, inv_ext = morton_bounds
-    key = torch.where(active, _octant3(d) * 16 + _morton4(o, bmin, inv_ext), 128)
-    return _perm_from_key(key, 129)
+    return torch.where(active, _octant3(d) * 16 + _morton4(o, bmin, inv_ext), 128)
+
+
+def _ray_perm(o, d, active, morton_bounds, treelet_bounds=None):
+    """(perm, pos) ordering rays by (alive, octant[, origin morton |
+    destination treelet]): `ray_key_plain`'s key, computed on CUDA tensors
+    by one launch of csrc/sortkey.cu (ops/cuda/sortkey.py), sorted by K3."""
+    key_fn = sortkey.ray_key if o.device.type == "cuda" else ray_key_plain
+    return _perm_from_key(key_fn(o, d, active, morton_bounds, treelet_bounds),
+                          _bins(morton_bounds, treelet_bounds))
 
 
 def _sorted_rays(o, d, active, morton_bounds, treelet_bounds=None):

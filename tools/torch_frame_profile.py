@@ -22,8 +22,8 @@ the last ones, where a full prep holds `prepare`, `prepare_wide` and
 `scene_tables` counts (full preps and refits); from the profiled frames, the
 wall time per frame, the device-busy share (the union of the device
 operations' intervals over the wall time, as benchmark/harness/trace.py
-computes it), the share of the hand-written kernels (the trace kernels, K3
-and ReSTIR's), the top GPU kernels
+computes it), the share of the hand-written kernels (the trace kernels, K3,
+ReSTIR's and the sort key's), the top GPU kernels
 by total time, and the 10 longest idle gaps of the device, each named by
 the innermost program span (`record_function` label) open on the host when
 it began.
@@ -48,7 +48,7 @@ import torch
 
 FRAMES = 3
 OWN_KERNELS = ("trace_kernel", "anyhit_kernel", "binary_kernel", "treelet_kernel",
-               "hist_kernel", "scan_kernel", "rank_kernel", "restir_kernel")
+               "hist_kernel", "scan_kernel", "rank_kernel", "restir_kernel", "key_kernel")
 
 
 def span_table(records) -> list[tuple[str, float, int, int]]:
