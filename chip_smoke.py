@@ -33,8 +33,7 @@ PyTorch version on the card:
   `spp_pixel_major`;
 - the bench frame through `Renderer(mesh=...)` (parallel/sharding.py):
   on `make_mesh()` and on a 4-block mesh of cuda:0, K1/K2/K3 once per
-  block, the same with a caller's BinaryScene (K6/K3 once per block), and
-  K1/K2 and K4/K5 through `with_mesh`'s ray split;
+  block, and the same with a caller's BinaryScene (K6/K3 once per block);
 - `bench_torch.py`, the port's benchmark entry, at its full size (the
   bench frame, 1 + 3 x 6 frames): K1/K2/K3;
 - each `examples/torch_*.py` at small sizes: the 6-sphere scene and the
@@ -78,17 +77,15 @@ Phases:
      reference's weighting, every output equal bit for bit; the kernel's
      CUDA-event ms beside its byte bound and the plain body's ms; ptxas's
      report of csrc/restir.cu;
-  6a. the mesh: K1/K2 through `wide.with_mesh` on 65,537 bench bounce
-     lanes (4 blocks, 3 pad lanes) equal to the unsharded calls on every
-     lane; then the bench frame through `Renderer(mesh=make_mesh())` (one
+  6a. the mesh: the bench frame through `Renderer(mesh=make_mesh())` (one
      card: a mesh of size 1) and `Renderer(mesh=make_mesh(devices=[cuda:0]
      * 4))`, one warm-up and 2 frames each in turns with the
      single-device Renderer of the same seed: packed frame and aux colour
      bit-equal every frame, launches K1 3n, K2 5n, K3 6n, ms/frame, the
-     bytes the gathers copied and moved; then the same with a caller's
-     BinaryScene set as `r.wscene` on every Renderer (the mesh Renderers
-     replicate it once, `binary.with_mesh`): bit-equal every frame,
-     launches K6 3n + 5n, K3 6n;
+     bytes the gathers copied and moved, the kernel scene replicated once;
+     then the same with a caller's BinaryScene set as `r.wscene` on every
+     Renderer (each mesh Renderer replicates it once): bit-equal every
+     frame, launches K6 3n + 5n, K3 6n;
   6b. bench_torch: `bench_torch.run` at its full size, its JSON line
      printed and its fields checked (11,714,560 rays dispatched a frame,
      internal 1280x704, 15,552 triangles, 3 windows of 6 frames, the
@@ -151,8 +148,7 @@ Phases:
      SIMD-efficiency count; ptxas's report of csrc/stream_trace.cu; the
      depth of the terrain's binary BVH against K6's stack bound; K4
      called with a stack cap of 1 on the terrain's bounce lanes must fail
-     the walk's device-side assert (in a child process); then K4/K5
-     through `stream.with_mesh` on 65,537 of those lanes as in 6a;
+     the walk's device-side assert (in a child process);
  16. K8: `trace_closest_treelet_stream_packed` on the terrain's 1,802,240
      treelet-sorted bounce lanes equal to K4 (t and pp) on every lane; one
      K8 round equal to its plain version on the first 65,536 lanes; timed;
@@ -223,7 +219,6 @@ CONFIG4_FRAMES = 4  # refit frames timed after one warm-up
 SETTINGS_FRAMES = 3  # frames of each integrator-setting arm after one warm-up
 T_REL_TOL = 1e-3
 SUBSET = 65_536  # rays of each terrain population held to the plain walk
-RAY_SPLIT = 65_537  # lanes of with_mesh's ray split: not divisible by 4 (pad lanes)
 MESH_FRAMES = 2  # timed mesh frames after one warm-up, in turns with one device
 PARITY_SIZE = 512  # BASELINE config 1 at full size
 PARITY_SEEDS = 16
@@ -859,36 +854,6 @@ def phase_restir(dev, bench, size=(1920, 1080)):
         check(not any(diff.values()), f"ReSTIR {label}: kernel != plain body {diff}")
 
 
-def _ray_split(label, mod, ks, o, d, act, meshes) -> dict:
-    """`mod.with_mesh(ks, mesh)` (wide: K1/K2, stream: K4/K5) on the first
-    RAY_SPLIT lanes against the unsharded calls, t, pp and occ equal on
-    every lane; returns the split calls' launch counts."""
-    if mod.__name__.endswith("wide"):
-        closest, shadow = mod.trace_closest_wide_packed, mod.shadow_occlusion_wide
-    else:
-        closest, shadow = mod.trace_closest_stream_packed, mod.shadow_occlusion_stream
-    o, d, act = (x[:RAY_SPLIT].contiguous() for x in (o, d, act))
-    t_ref, pp_ref = closest(ks, o, d, active=act)
-    occ_ref = shadow(ks, o, d, 1e29, active=act)
-    total = {}
-    for mesh_label, mesh in meshes:
-        km = mod.with_mesh(ks, mesh)
-        torch.cuda.synchronize()
-        _reset_counts()
-        t, pp = closest(km, o, d, active=act)
-        occ = shadow(km, o, d, 1e29, active=act)
-        torch.cuda.synchronize()
-        counts = _read_counts()
-        total = {k: total.get(k, 0) + v for k, v in counts.items()}
-        n_bad = int((t != t_ref).sum() + (pp != pp_ref).sum() + (occ != occ_ref).sum())
-        check(n_bad == 0, f"{label} split over {mesh_label}: {n_bad} values differ")
-        log(f"{label} with_mesh over {mesh_label} ({mesh.size} blocks, "
-            f"{-RAY_SPLIT % mesh.size} pad lanes) on {RAY_SPLIT} lanes "
-            f"({int(act.sum())} live): t, pp and occ equal to the unsharded calls on "
-            f"every lane; launches {({k: v for k, v in counts.items() if v})}")
-    return total
-
-
 def _meshes(dev):
     from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
 
@@ -901,8 +866,8 @@ def _mesh_route(route, dev, bench, meshes, kscene, want):
     in turns with the single-device Renderer of the same seed: packed frame
     and low-res colour bit-equal every frame, launches `want(n)` a frame.
     `kscene` (None: the Renderer's own wide tables) is set as `r.wscene`
-    on every Renderer, unmeshed: the mesh Renderers attach their mesh to it
-    once. Returns (launches of the timed frames, ms/frame by arm, the
+    on every Renderer: each mesh Renderer replicates it onto its mesh once.
+    Returns (launches of the timed frames, ms/frame by arm, the
     gathers' bytes of each arm's last frame, the internal pixel count)."""
     from ilgpu_raytracing_tpu_torch.config import RenderConfig
     from ilgpu_raytracing_tpu_torch.models.cornell import cornell_camera
@@ -946,10 +911,12 @@ def _mesh_route(route, dev, bench, meshes, kscene, want):
                       f"frame: {int((packed != ref[0]).sum())} packed pixels, "
                       f"{int((dc > 0).any(dim=1).sum())} colour pixels (max abs "
                       f"{float(dc.max()):.3e})")
-                # the caller's unmeshed scene gets its mesh once, not every frame
-                ks = r._frame_kscene()
-                check(ks.mesh is mesh and meshed.setdefault(label, ks) is ks,
-                      f"mesh {route} {label} frame {f}: the kernel scene was re-meshed")
+                # the kernel scene is replicated once, not every frame
+                reps = r._kscene_replicas()
+                check(r._kscenes[0] is r.wscene and meshed.setdefault(label, reps) is reps
+                      and len({id(c) for c in reps.copies}) == len(mesh.distinct_devices),
+                      f"mesh {route} {label} frame {f}: the kernel scene was replicated "
+                      f"again")
             gathers[label] = dict(shrd.GATHER_BYTES)
             if f:
                 frame_ms[label].append(ms)
@@ -963,13 +930,11 @@ def phase_mesh(dev, bench, meshes=None):
     of cuda:0), in turns with the single-device Renderer of the same seed:
     packed frame and low-res colour bit-equal every frame, launches n times
     the single-device ones, ms/frame, the gathers' bytes; on the wide route
-    (K1/K2/K3) and on the binary route (K6/K3, a caller's BinaryScene).
-    Before it K1/K2 through wide.with_mesh on bench bounce lanes."""
-    from ilgpu_raytracing_tpu_torch.ops.cuda import binary, wide
+    (K1/K2/K3) and on the binary route (K6/K3, a caller's BinaryScene)."""
+    from ilgpu_raytracing_tpu_torch.ops.cuda import binary
 
     meshes = meshes or _meshes(dev)
-    total = _ray_split("K1/K2 bench bounce lanes", wide, bench["ws"], bench["bo"],
-                       bench["bd"], bench["act"], meshes)
+    total = {}
     t0 = time.monotonic()
     bs = binary.prepare_binary(bench["scene"])
     prep_s = time.monotonic() - t0
@@ -985,7 +950,7 @@ def phase_mesh(dev, bench, meshes=None):
             f"single-device Renderer on all {1 + MESH_FRAMES} frames of each mesh; "
             f"launches per frame {kernels}"
             + ("" if kscene is None else f"; BinaryScene prepared once in {prep_s:.3f} s "
-               f"and meshed once by each mesh Renderer"))
+               f"and replicated once by each mesh Renderer"))
         log(f"mesh frame ms in turns, {route} route ({smi_line()}), {MESH_FRAMES} frames "
             f"after a warm-up: "
             + "; ".join(f"{label} {[round(x, 3) for x in v]} (mean {np.mean(v):.3f})"
@@ -1933,7 +1898,8 @@ def phase_config4(dev):
     from ilgpu_raytracing_tpu_torch.models.scene import SceneBuilder, refit_mesh_instance
     from ilgpu_raytracing_tpu_torch.ops import rays
     from ilgpu_raytracing_tpu_torch.ops.cuda import wide
-    from ilgpu_raytracing_tpu_torch.runtime.renderer import SCENE_TABLES, Renderer
+    from ilgpu_raytracing_tpu_torch.ops.route import SCENE_TABLES
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
 
     builder, scene = build_cornell_scene(tess=24, sphere_tess=(48, 72), blas_leaf_size=8,
                                          bvh_method="sah", device=dev)
@@ -2274,7 +2240,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     from ilgpu_raytracing_tpu_torch.ops import cuda as cu
-    from ilgpu_raytracing_tpu_torch.ops.cuda import stream
 
     t_start = time.monotonic()
     dev = torch.device("cuda:0")
@@ -2319,8 +2284,6 @@ def main() -> int:
     del court
     terrain, ss = timed("terrain prep", phase_terrain_prep, dev)
     lanes = timed("K4/K5", phase_k4_k5, dev, results, terrain, ss)
-    split_counts = timed("terrain ray split", _ray_split, "K4/K5 terrain bounce lanes",
-                         stream, ss, lanes["bo"], lanes["bd"], lanes["act"], _meshes(dev))
     k8_counts = timed("K8", phase_k8, dev, results, ss, lanes)
     del ss, lanes
     timed("terrain parity", phase_terrain_parity, dev)
@@ -2374,7 +2337,7 @@ def main() -> int:
     # kernel that reaches this line met it.
     paths = (cornell_counts, k6_counts, k7_counts, court_counts, terrain_counts,
              k8_counts, settings_counts, config4_counts, session_counts, mesh_counts,
-             split_counts, bench_counts, example_counts)
+             bench_counts, example_counts)
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=sum(c[name] for c in paths), bar=bar, result="met",

@@ -13,8 +13,8 @@ reads (`pair_records`): one 64-byte child-pair record per inner node, one
 32-byte record of each instance root's box and child word, and the depth
 that bounds the kernel's stack.
 
-Under a device mesh, `with_mesh` replicates the tables onto each distinct
-device for the mesh frame's blocks; K6 splits no rays.
+ops/route.py chooses K6 for a BinaryScene; under a device mesh the
+renderer replicates the BinaryScene, as ops/cuda/wide.py says.
 
 Device side: `trace_closest_binary` (closest hit: t, prim, inst, bu, bv) and
 `shadow_occlusion_binary` (any-hit) launch K6 on CUDA tensors and run its
@@ -63,20 +63,6 @@ class BinaryScene:
     meta: tuple = ()
     leaf_width: int = LEAF_WIDTH
     needs_bary: bool = True
-    # set by `with_mesh`: replicas.copies[k] holds these tables on
-    # mesh.devices[k], for the mesh frame's block k
-    mesh: object = None
-    replicas: object = None
-
-
-def with_mesh(bs: BinaryScene, mesh) -> BinaryScene:
-    """A copy of `bs` carrying `mesh` and one replica of its tables on each
-    distinct device of the mesh (`replicas.copies[k]` on
-    `mesh.devices[k]`), for `runtime/renderer.render_frame_mesh`, which
-    traces block k against replica k. K6 has no ray split: a trace called
-    on the returned scene runs on its own tables, as on `bs`. The mesh's
-    devices must be of the tables' type."""
-    return wide.attach_mesh(bs, mesh, bs.nodes.device)
 
 
 def tree_depth(node_i: np.ndarray, roots) -> tuple[np.ndarray, int]:

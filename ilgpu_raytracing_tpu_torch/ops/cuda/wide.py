@@ -28,18 +28,14 @@ on CPU tensors: the per-lane skip-index walk of ops/traverse.py over the
 SceneData the WideScene was prepared from, wrapped to the kernel's packed
 `(t, pp)` / `occ` format. `decode_wide_hits` is the epilogue.
 
-Multi-device (wide_kernel.with_mesh): `with_mesh(ws, mesh)` replicates the
-tables onto each distinct device of a `parallel.sharding` mesh, and both
-wrappers then split their rays (`_shard_ray_op`): padded to a multiple of
-the mesh size with inactive lanes, block k traced on `mesh.devices[k]` by
-the same kernel against that device's replica, every block issued before
-the first copy back, the outputs concatenated on the rays' device. The
-result equals the unsharded call bit for bit.
+ops/route.py chooses this module's kernels for a WideScene. The wrappers
+trace every ray they are given on the tables' device and know nothing of a
+device mesh: under one, runtime/renderer.py replicates the WideScene onto
+each device and gives each device's pixel block its own copy.
 """
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 
 import numpy as np
@@ -54,7 +50,6 @@ from ilgpu_raytracing_tpu_torch.ops import cuda as cu
 from ilgpu_raytracing_tpu_torch.ops import traverse
 from ilgpu_raytracing_tpu_torch.ops.intersect import T_INF, intersect_triangle
 from ilgpu_raytracing_tpu_torch.ops.traverse import KIND_TRI, HitRecord
-from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
 from ilgpu_raytracing_tpu_torch.utils import telemetry, vec
 
 _LANES = 128
@@ -302,10 +297,6 @@ class WideScene:
     wide_depth: int = 0  # most inner wide nodes on a root-to-leaf chain
     leaf_width: int = WIDTH
     needs_bary: bool = True
-    # set by `with_mesh`: traces split their rays over `mesh`, block k
-    # traced against `replicas.copies[k]`, these tables on mesh.devices[k]
-    mesh: object = None
-    replicas: object = None
     # set by a full prep from a SceneData (`prepare_scene`), None otherwise
     _refit_maps: RefitMaps | None = dataclasses.field(default=None, repr=False)
     # (W, 64) i32 node records of K1, K2 and K7, derived from the wide tables
@@ -571,7 +562,7 @@ def refit_tables(prev, scene: SceneData) -> WideScene | None:
     (`octant_orders`); what depends on the topology alone (children, the
     sphere rows, the instance table, stack bounds, depth) is `prev`'s. The
     instance world boxes are read back for `meta`. Equal bit for bit to
-    `prepare_scene(scene)` with the mesh left off (`with_mesh` again)."""
+    `prepare_scene(scene)`."""
     maps = getattr(prev, "_refit_maps", None)
     if not isinstance(prev, WideScene) or maps is None:
         return None
@@ -774,64 +765,11 @@ def _lane_t_max(o, t_max, active):
     return t_max
 
 
-def with_mesh(ks, mesh):
-    """Attach a device mesh to a WideScene (or StreamScene): its traces
-    split their rays over mesh axis "px", block k traced on
-    `mesh.devices[k]` against a replica of the tables there (one copy on
-    each distinct device)."""
-    return attach_mesh(ks, mesh, ks.wide_child.device)
-
-
-def attach_mesh(ks, mesh, device):
-    """A copy of the kernel scene `ks`, whose tables lie on `device`, with
-    `mesh` and `replicas` set: one copy of the tables (with no mesh) on each
-    distinct device of the mesh. The mesh's devices must be of the tables'
-    type: no block moves between the card and the CPU."""
-    kinds = {d.type for d in mesh.devices}
-    if kinds != {device.type}:
-        raise ValueError(f"with_mesh: a mesh of {sorted(kinds)} devices for tables "
-                         f"on {device}")
-    plain = copy.copy(ks)
-    plain.mesh = plain.replicas = None
-    out = copy.copy(plain)
-    out.mesh, out.replicas = mesh, shrd.replicate(mesh, plain)
-    return out
-
-
-def _shard_ray_op(ks, run, o, d, t_max):
-    """`run(replica, o, d, t_max)` on each block of the rays: the rays
-    padded to a multiple of the mesh size (t_max 0 on pad lanes, which
-    makes them inactive), block k moved to `mesh.devices[k]` and traced
-    against that device's replica by the same kernel (its plain version on
-    CPU tensors), the outputs moved back to the rays' device, concatenated
-    and cut to n. Every block's launch is issued before the first copy
-    back, so distinct devices overlap. A block whose kernel fails raises."""
-    mesh = ks.mesh
-    n = o.shape[0]
-    pad = -(-n // mesh.size) * mesh.size - n
-    if pad:
-        o = torch.cat([o, o.new_zeros((pad, 3))])
-        d = torch.cat([d, d.new_zeros((pad, 3))])
-        t_max = torch.cat([t_max, t_max.new_zeros((pad,))])
-    outs = []
-    for rows, dev, rep in zip(shrd.block_slices(n + pad, mesh), mesh.devices,
-                              ks.replicas.copies):
-        with shrd.device_scope(dev):
-            outs.append(run(rep, o[rows].to(dev), d[rows].to(dev), t_max[rows].to(dev)))
-    if isinstance(outs[0], torch.Tensor):
-        return torch.cat([x.to(o.device) for x in outs])[:n]
-    return tuple(torch.cat([x[i].to(o.device) for x in outs])[:n]
-                 for i in range(len(outs[0])))
-
-
 def trace_closest_wide_packed(ws: WideScene, o, d, active=None, t_max=None):
     """K1: closest hit as the packed record (t, pp), pp = prim |
     (inst*4+kind) << 20, miss = -1; t_max 0 marks an inactive lane."""
     t_max = _lane_t_max(o, t_max, active)
     _check_rays(ws.wide_child.device, o, d, t_max)
-    if ws.mesh is not None:
-        return _shard_ray_op(ws, lambda rep, oo, dd, tm: trace_closest_wide_packed(
-            rep, oo, dd, t_max=tm), o, d, t_max)
     with telemetry.kernel("wide_closest", o.shape[0]):
         if o.device.type == "cpu":
             return trace_closest_plain(ws, o, d, t_max)
@@ -842,8 +780,6 @@ def shadow_occlusion_wide(ws: WideScene, o, d, t_max_world, active=None):
     """K2: any-hit occlusion within (T_EPS, t_max_world); bool (N,)."""
     t_max = _lane_t_max(o, t_max_world, active)
     _check_rays(ws.wide_child.device, o, d, t_max)
-    if ws.mesh is not None:
-        return _shard_ray_op(ws, shadow_occlusion_wide, o, d, t_max)
     with telemetry.kernel("wide_shadow", o.shape[0]):
         if o.device.type == "cpu":
             return shadow_plain(ws, o, d, t_max)

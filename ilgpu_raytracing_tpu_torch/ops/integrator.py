@@ -9,20 +9,15 @@ updates, Russian roulette from `rr_start_depth`, visibility-ray RR, the
 once-per-frame bounce-0 sun occlusion trace, an any-hit sky test at the
 final bounce, and a per-sample NaN scrub and fold.
 
-With a kernel scene the traces go through its kernels -- the wide K1/K2
-(ops/cuda/wide.py) for a WideScene, the streaming K4/K5
-(ops/cuda/stream.py) for a StreamScene, the binary K6 (ops/cuda/binary.py)
-for a BinaryScene -- and the counting sort K3 (ops/cuda/sortpos.py); each
-runs its CUDA kernel on CUDA tensors and its plain version on CPU tensors.
-Without one the traces go to the plain tracer of ops/traverse.py directly.
-On a scene with alpha cutouts every trace peels around the kernel scene's
-closest-hit kernel (ops/alpha.py); the plain tracer tests the masks in its
-loop. Pixel batches above `chunk_pixels` run as equal chunks, trace lanes
-(spp x pixels) counted on the plain-tracer and alpha paths. Under a device
-mesh (runtime/renderer.render_frame_mesh) both entry points take one
-device's contiguous pixel block (`pixels`). Two settings
-reshape the dispatches without changing what is traced:
-`spp_pixel_major` (a pixel's samples on adjacent lanes) and
+Every trace goes through ops/route.py, which chooses the kernel from the
+kernel scene (`wscene`; None for the plain tracer of ops/traverse.py) and
+sorts bounce batches around the counting sort K3. Pixel batches above
+`chunk_pixels` run as equal chunks, trace lanes (spp x pixels) counted on
+the plain-tracer and alpha paths. Under a device mesh
+(runtime/renderer.render_frame_mesh) both entry points take one device's
+contiguous pixel block (`pixels`) and that device's replica of the kernel
+scene. Two settings reshape the dispatches without changing what is
+traced: `spp_pixel_major` (a pixel's samples on adjacent lanes) and
 `deferred_shadows` (every visibility ray of the frame in one sorted
 any-hit dispatch after the bounce loop).
 """
@@ -30,7 +25,6 @@ any-hit dispatch after the bounce loop).
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
@@ -41,16 +35,12 @@ from ilgpu_raytracing_tpu_torch.models.materials import (
     SHADING_MIRROR,
 )
 from ilgpu_raytracing_tpu_torch.models.scene import SceneData
-from ilgpu_raytracing_tpu_torch.ops import alpha as alpha_ops
 from ilgpu_raytracing_tpu_torch.ops import layout
 from ilgpu_raytracing_tpu_torch.ops import rays as rays_mod
 from ilgpu_raytracing_tpu_torch.ops import restir as restir_mod
+from ilgpu_raytracing_tpu_torch.ops import route
 from ilgpu_raytracing_tpu_torch.ops import sky as sky_ops
-from ilgpu_raytracing_tpu_torch.ops import sort as sort_mod
 from ilgpu_raytracing_tpu_torch.ops import traverse
-from ilgpu_raytracing_tpu_torch.ops.cuda import binary as binary_mod
-from ilgpu_raytracing_tpu_torch.ops.cuda import stream as stream_mod
-from ilgpu_raytracing_tpu_torch.ops.cuda import wide as wide_mod
 from ilgpu_raytracing_tpu_torch.ops.sampling import sample_hemisphere_cosine
 from ilgpu_raytracing_tpu_torch.utils import rng as rng_mod
 from ilgpu_raytracing_tpu_torch.utils import telemetry, vec
@@ -85,90 +75,6 @@ def _pick_n_chunks(n: int, target: int) -> int:
     return 1
 
 
-def _kernels(kscene):
-    """(packed closest, decode, any-hit) wrappers of a kernel scene: the
-    streaming kernels K4/K5 for a StreamScene, the wide K1/K2 otherwise."""
-    if isinstance(kscene, stream_mod.StreamScene):
-        return (stream_mod.trace_closest_stream_packed,
-                stream_mod.decode_stream_hits, stream_mod.shadow_occlusion_stream)
-    return (wide_mod.trace_closest_wide_packed, wide_mod.decode_wide_hits,
-            wide_mod.shadow_occlusion_wide)
-
-
-def _closest_record(kscene):
-    """closest(o, d, active) -> HitRecord: the kernel scene's closest-hit
-    kernel, K6 for a BinaryScene, K1/K4 (packed record decoded) otherwise."""
-    if isinstance(kscene, binary_mod.BinaryScene):
-        return lambda oo, dd, act: binary_mod.trace_closest_binary(
-            kscene, oo, dd, active=act)
-    packed, decode, _ = _kernels(kscene)
-
-    def closest(oo, dd, act):
-        t, pp = packed(kscene, oo, dd, active=act)
-        return decode(kscene, oo, dd, t, pp)
-
-    return closest
-
-
-def _trace(scene, kscene, o, d, active=None, sort=False, morton_bounds=None,
-           treelet_bounds=None):
-    """Closest-hit dispatch: the kernel scene's closest-hit kernel (sorted
-    around K3 for bounce batches) when one is given, the plain tracer
-    otherwise. K6 and the alpha peel return a whole HitRecord, which the
-    sort restores field by field (ops/sort.sorted_closest); opaque K1/K4
-    return the packed record, restored as two fields and decoded in the
-    caller's lane order."""
-    if kscene is None:
-        return traverse.trace_closest(scene, o, d, active=active)
-    if scene.has_alpha or isinstance(kscene, binary_mod.BinaryScene):
-        closest = _closest_record(kscene)
-        if scene.has_alpha:
-            closest = functools.partial(alpha_ops.trace_closest_peel, closest, scene)
-        if sort and active is not None:
-            return sort_mod.sorted_closest(closest, o, d, active, morton_bounds,
-                                           treelet_bounds)
-        return closest(o, d, active)
-    packed, decode, _ = _kernels(kscene)
-    if sort and active is not None:
-        return sort_mod.sorted_closest_packed(
-            lambda oo, dd, act: packed(kscene, oo, dd, active=act),
-            lambda t, pp: decode(kscene, o, d, t, pp),
-            o, d, active, morton_bounds, treelet_bounds,
-        )
-    t, pp = packed(kscene, o, d, active=active)
-    return decode(kscene, o, d, t, pp)
-
-
-def _shadow(scene, kscene, o, d, t_max: float, active=None, sort=False,
-            morton_bounds=None, treelet_bounds=None):
-    """Any-hit dispatch (K2, K5 or K6, sorted around K3 for bounce batches;
-    on an alpha scene the any-hit band peeled around the closest-hit
-    kernel). The sorted path needs a scalar t_max (a per-lane limit would
-    have to ride the permutation)."""
-    if kscene is None:
-        return traverse.shadow_occlusion(scene, o, d, t_max, active=active)
-    if scene.has_alpha:
-        closest = _closest_record(kscene)
-
-        def run(oo, dd, act):
-            return alpha_ops.shadow_occlusion_peel(closest, scene, oo, dd, t_max, act)
-    else:
-        if isinstance(kscene, binary_mod.BinaryScene):
-            any_hit = binary_mod.shadow_occlusion_binary
-        else:
-            _, _, any_hit = _kernels(kscene)
-
-        def run(oo, dd, act):
-            return any_hit(kscene, oo, dd, t_max, active=act)
-
-    if sort and active is not None:
-        if not isinstance(t_max, (int, float)):
-            raise ValueError("sorted shadow path requires a scalar t_max")
-        return sort_mod.sorted_shadow(run, o, d, active, morton_bounds,
-                                      treelet_bounds)
-    return run(o, d, active)
-
-
 @telemetry.spanned("primary")
 def primary_visibility(scene: SceneData, camera, width: int, height: int,
                        chunk_pixels: int = 0, wscene=None,
@@ -184,7 +90,7 @@ def primary_visibility(scene: SceneData, camera, width: int, height: int,
     for uc, vc in zip(u.chunk(c), v.chunk(c)):
         o, d = rays_mod.generate_rays(camera, uc, vc)
         o = o.contiguous()
-        hit = _trace(scene, wscene, o, d)
+        hit = route.closest(scene, wscene, o, d)
         surf = traverse.shade_hits(scene, hit, o, d)
         parts.append(GBuffer(
             pos=surf.pos, normal=surf.normal, albedo=surf.albedo,
@@ -239,18 +145,7 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
     cam_origin = torch.as_tensor(camera.origin, dtype=torch.float32, device=dev)
     sky_top, sky_bottom = cfg.sky_tint_top, cfg.sky_tint_bottom
     sun_radiance = cfg.sun_radiance
-
-    # scene-bounds quantization for the origin-Morton sort key
-    morton_bounds = None
-    if cfg.sort_bounce_rays and cfg.sort_origin_morton:
-        bmin = torch.amin(scene.inst_bmin, dim=0)
-        bmax = torch.amax(scene.inst_bmax, dim=0)
-        morton_bounds = (bmin, 1.0 / torch.clamp(bmax - bmin, min=1e-6))
-    # streaming scenes: destination-treelet key instead of origin Morton
-    treelet_bounds = None
-    if (cfg.sort_bounce_rays and cfg.sort_stream_treelet_key
-            and isinstance(wscene, stream_mod.StreamScene)):
-        treelet_bounds = wscene.sortkey_bounds
+    sort = route.sort_key(scene, wscene, cfg)  # None: the bounces trace unsorted
 
     # lane layout (config.spp_pixel_major): sample-major stacks whole
     # sample tiles; pixel-major keeps a pixel's spp lanes adjacent
@@ -376,11 +271,8 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
                                      act=q_act))
         else:
             with telemetry.span("shadow"):
-                occluded = _shadow(
-                    scene, wscene, shadow_o, sel["wi"], 1e29, active=q_act,
-                    sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
-                    treelet_bounds=treelet_bounds,
-                )
+                occluded = route.any_hit(scene, wscene, shadow_o, sel["wi"], 1e29,
+                                         active=q_act, sort=sort)
             li = li + torch.where(
                 (q_act & (~occluded))[..., None], contrib_w, zeros3(contrib_w)
             )
@@ -443,21 +335,15 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
                 alive = torch.zeros_like(trace_active)
             else:
                 with telemetry.span("trace"):
-                    occluded = _shadow(
-                        scene, wscene, ray_o, new_dir, 1e29, active=sky_act,
-                        sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
-                        treelet_bounds=treelet_bounds,
-                    )
+                    occluded = route.any_hit(scene, wscene, ray_o, new_dir, 1e29,
+                                             active=sky_act, sort=sort)
                 missed = sky_act & (~occluded)
                 li = li + torch.where(missed[..., None], sky_w, zeros3(sky_w))
                 alive = sky_act & occluded
         else:
             with telemetry.span("trace"):
-                hit = _trace(
-                    scene, wscene, ray_o, new_dir, active=trace_active,
-                    sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
-                    treelet_bounds=treelet_bounds,
-                )
+                hit = route.closest(scene, wscene, ray_o, new_dir,
+                                    active=trace_active, sort=sort)
             with telemetry.span("shade"):
                 surf = traverse.shade_hits(scene, hit, ray_o, new_dir)
             missed = trace_active & (~hit.hit)
@@ -490,8 +376,8 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
             lam0 = gb_px.hit & (gb_px.shading == SHADING_LAMBERT)
             sun_o0 = _offset_origin(gb_px.pos, vec.normalize(gb_px.normal),
                                     wi_sun0, cfg.eps_n)
-            sun_occ0 = tile(_shadow(scene, wscene, sun_o0, wi_sun0.contiguous(),
-                                    1e29, active=lam0))
+            sun_occ0 = tile(route.any_hit(scene, wscene, sun_o0, wi_sun0.contiguous(),
+                                          1e29, active=lam0))
             eff0 = torch.sum(lam0.to(torch.float32))
     else:
         sun_occ0 = None
@@ -529,11 +415,10 @@ def _path_trace_block(scene: SceneData, gb_full: GBuffer, gb: GBuffer,
         with telemetry.span("deferred_shadow"):
             n_seg = len(shadow_queue)
             q_act = torch.cat([q["act"] for q in shadow_queue])
-            occ = _shadow(
+            occ = route.any_hit(
                 scene, wscene, torch.cat([q["o"] for q in shadow_queue]),
-                torch.cat([q["d"] for q in shadow_queue]), 1e29,
-                active=q_act, sort=cfg.sort_bounce_rays, morton_bounds=morton_bounds,
-                treelet_bounds=treelet_bounds,
+                torch.cat([q["d"] for q in shadow_queue]), 1e29, active=q_act,
+                sort=sort,
             )
             vis = (q_act & (~occ)).reshape(n_seg, n)
             for b, q in enumerate(shadow_queue):

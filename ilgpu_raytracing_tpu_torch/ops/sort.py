@@ -114,26 +114,30 @@ def _ray_perm(o, d, active, morton_bounds, treelet_bounds=None):
                           _bins(morton_bounds, treelet_bounds))
 
 
-def _sorted_rays(o, d, active, morton_bounds, treelet_bounds=None):
-    """(perm, pos, sorted_active). Live lanes sort before every dead one,
-    so the sorted active mask is iota < n_alive."""
+def _sort_trace_restore(fn, o, d, active, morton_bounds, treelet_bounds):
+    """fn(o, d, active) on the rays ordered by `_ray_perm`, its result -- a
+    tensor, a tuple of tensors or a dataclass of tensors -- restored to the
+    original lane order, each tensor by its own gather. Live lanes sort
+    before every dead one, so the sorted active mask is iota < n_alive."""
     perm, pos = _ray_perm(o, d, active, morton_bounds, treelet_bounds)
     n_alive = torch.sum(active.to(torch.int32))
     act_s = torch.arange(o.shape[0], dtype=torch.int32, device=o.device) < n_alive
-    return perm, pos, act_s
+    pl = perm.long()
+    out = fn(o[pl], d[pl], act_s)
+    pos_l = pos.long()
+    if isinstance(out, torch.Tensor):
+        return out[pos_l]
+    if isinstance(out, tuple):
+        return tuple(x[pos_l] for x in out)
+    return dataclasses.replace(
+        out, **{f.name: getattr(out, f.name)[pos_l] for f in dataclasses.fields(out)})
 
 
 @telemetry.spanned("sort")
 def sorted_closest(trace_fn, o, d, active, morton_bounds=None, treelet_bounds=None):
-    """trace_fn(o, d, active) -> HitRecord on sorted rays (the binary K6
-    path); every field is restored to the original lane order by its own
-    gather."""
-    perm, pos, act_s = _sorted_rays(o, d, active, morton_bounds, treelet_bounds)
-    pl = perm.long()
-    hit = trace_fn(o[pl], d[pl], act_s)
-    pos_l = pos.long()
-    return dataclasses.replace(
-        hit, **{f.name: getattr(hit, f.name)[pos_l] for f in dataclasses.fields(hit)})
+    """trace_fn(o, d, active) -> HitRecord on sorted rays (K6 and the alpha
+    peel); every field is restored to the original lane order."""
+    return _sort_trace_restore(trace_fn, o, d, active, morton_bounds, treelet_bounds)
 
 
 @telemetry.spanned("sort")
@@ -142,18 +146,12 @@ def sorted_closest_packed(trace_fn, decode_fn, o, d, active, morton_bounds=None,
     """trace_fn(o, d, active) -> packed (t, pp) on sorted rays; the two
     fields are restored to original lane order and decode_fn(t, pp) runs
     there (against the caller's original-order o/d)."""
-    perm, pos, act_s = _sorted_rays(o, d, active, morton_bounds, treelet_bounds)
-    pl = perm.long()
-    t, pp = trace_fn(o[pl], d[pl], act_s)
-    pos_l = pos.long()
-    return decode_fn(t[pos_l], pp[pos_l])
+    return decode_fn(*_sort_trace_restore(trace_fn, o, d, active, morton_bounds,
+                                          treelet_bounds))
 
 
 @telemetry.spanned("sort")
 def sorted_shadow(shadow_fn, o, d, active, morton_bounds=None,
                   treelet_bounds=None):
     """shadow_fn(o, d, active) -> (N,) bool on sorted rays, restored."""
-    perm, pos, act_s = _sorted_rays(o, d, active, morton_bounds, treelet_bounds)
-    pl = perm.long()
-    occ = shadow_fn(o[pl], d[pl], act_s)
-    return occ[pos.long()]
+    return _sort_trace_restore(shadow_fn, o, d, active, morton_bounds, treelet_bounds)

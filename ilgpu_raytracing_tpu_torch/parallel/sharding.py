@@ -147,6 +147,17 @@ def to_device(tree, device):
     return _map_tensors(tree, lambda x: x.to(device))
 
 
+def device_of(tree):
+    """The device of a tensor, or of a dataclass's first tensor field; None
+    for anything else (the plain tracer's kernel scene, None)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.device
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return next((v.device for v in vars(tree).values()
+                     if isinstance(v, torch.Tensor)), None)
+    return None
+
+
 def _n_rows(tree) -> int:
     if isinstance(tree, torch.Tensor):
         return tree.shape[0]

@@ -6,30 +6,34 @@ sun animation, reservoir ping-pong, the noise key, HUD timing and
 presentation (device -> host -> PNG).
 
 The Renderer runs on the device it is given -- the card unless the caller
-asks for the CPU -- and nowhere else. On CUDA it traces with the
-hand-written kernels (K1/K2 wide walks up to 150k triangles, K4/K5
-streaming walks up to 4M, K3 counting sort, and ReSTIR DI in one launch a
-bounce, csrc/restir.cu) and refuses what they do not cover; on the CPU the same wrappers run their plain versions. It never
-moves work to another device or swaps a kernel for its plain version on
-its own. A caller may set `r.wscene = binary.prepare_binary(r.scene)`
-(ops/cuda/binary.py) after construction, as the JAX package's callers set
-`r.pscene = traverse_kernel.prepare(scene)`: every trace of the frame then
-runs the binary skip-index kernel K6. A scene with alpha cutouts (an OBJ
-with `map_d`, models/sponza_like.py) routes by size like any other, and
-every trace of its frame peels around the closest-hit kernel of its route,
-K1, K4 or K6 (ops/alpha.py): the any-hit kernels do not run on it.
+asks for the CPU -- and nowhere else. ops/route.py chooses the kernels
+that trace: on CUDA the hand-written ones (K1/K2 wide walks up to 150k
+triangles, K4/K5 streaming walks up to 4M, K3 counting sort), refusing
+what they do not cover; on the CPU the same wrappers run their plain
+versions. ReSTIR DI runs in one launch a bounce (csrc/restir.cu). The
+Renderer never moves work to another device or swaps a kernel for its
+plain version on its own. A caller may set `r.wscene =
+binary.prepare_binary(r.scene)` (ops/cuda/binary.py) after construction,
+as the JAX package's callers set `r.pscene = traverse_kernel.prepare(scene)`:
+every trace of the frame then runs the binary skip-index kernel K6. A scene
+with alpha cutouts (an OBJ with `map_d`, models/sponza_like.py) routes by
+size like any other, and every trace of its frame peels around the
+closest-hit kernel of its route, K1, K4 or K6 (ops/alpha.py): the any-hit
+kernels do not run on it.
 
 `Renderer(mesh=parallel.sharding.make_mesh(...))` renders over a device
 mesh (`render_frame_mesh`): the internal resolution is snapped so both
-pixel counts divide the mesh, the FrameState is sharded and the scene and
-its kernel tables replicated (`with_mesh`), and device k runs the whole
-frame step for its own contiguous pixel block after gathering the
-full-image G-buffer, `res_prev` and packed low-res frame that ReSTIR's
-and TAAU's taps read. A kernel scene the caller sets without a mesh
-(`r.wscene = binary.prepare_binary(r.scene)`) is replicated once, when
-the first frame after the assignment renders. The frame equals the
-single-device frame bit for bit. The renderer runs on the mesh's devices;
-an explicit `device=` that disagrees with them raises.
+pixel counts divide the mesh, the FrameState is sharded, and the renderer
+replicates the scene and its kernel scene onto the mesh (one copy on each
+distinct device); device k runs the whole frame step for its own
+contiguous pixel block, tracing against its own copies, after gathering
+the full-image G-buffer, `res_prev` and packed low-res frame that ReSTIR's
+and TAAU's taps read. The pixel blocks are the only split: no trace
+splits its rays. The kernel scene is replicated once per `set_scene`, and
+once per kernel scene a caller assigns to `r.wscene`, when the first frame
+after the assignment renders. The frame equals the single-device frame
+bit for bit. The renderer runs on the mesh's devices; an explicit
+`device=` that disagrees with them raises.
 """
 
 from __future__ import annotations
@@ -42,18 +46,11 @@ import torch
 from ilgpu_raytracing_tpu_torch.config import RenderConfig
 from ilgpu_raytracing_tpu_torch.models.camera import Camera
 from ilgpu_raytracing_tpu_torch.models.scene import SceneData, build_default_scene
-from ilgpu_raytracing_tpu_torch.ops import integrator, sky, taa, tonemap, upsample
-from ilgpu_raytracing_tpu_torch.ops.cuda import binary as binary_mod
-from ilgpu_raytracing_tpu_torch.ops.cuda import stream as stream_mod
-from ilgpu_raytracing_tpu_torch.ops.cuda import wide as wide_mod
+from ilgpu_raytracing_tpu_torch.ops import integrator, route, sky, taa, tonemap, upsample
 from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
 from ilgpu_raytracing_tpu_torch.runtime.framestate import FrameState
 from ilgpu_raytracing_tpu_torch.runtime.hud import FrameTimingHud
 from ilgpu_raytracing_tpu_torch.utils import image, packing, telemetry
-
-# the path each set_scene took to its kernel tables: a full prep, or the
-# wide tables rebuilt from the last ones (wide.refit_tables)
-SCENE_TABLES = telemetry.counter("scene_tables", prepared=0, refitted=0)
 
 
 def render_frame(scene: SceneData, camera, prev_camera, state: FrameState,
@@ -115,44 +112,42 @@ def _upsample(low_packed, obj_id, taa_color, taa_obj, taa_valid: bool,
     return out, taa_color, taa_obj
 
 
-def _block_kscene(kscene, k: int):
-    """Device k's kernel scene: its replica when the scene carries a mesh
-    (`with_mesh`), the scene itself otherwise (the plain tracer's None)."""
-    if getattr(kscene, "mesh", None) is None:
-        return kscene
-    return kscene.replicas.copies[k]
-
-
-def _tables_device(kscene):
-    """The device of a kernel scene's tables (None for the plain tracer)."""
-    if kscene is None:
-        return None
-    return next(v.device for v in vars(kscene).values() if isinstance(v, torch.Tensor))
+def replicate_kscene(mesh: shrd.Mesh, kscene) -> shrd.Replicated:
+    """One copy of a kernel scene (None: the plain tracer) on each distinct
+    device of the mesh, `copies[k]` for block k. The mesh's devices must be
+    of the tables' type: no block moves between the card and the CPU."""
+    on = shrd.device_of(kscene)
+    kinds = {d.type for d in mesh.devices}
+    if on is not None and kinds != {on.type}:
+        raise ValueError(f"with_mesh: a mesh of {sorted(kinds)} devices for tables "
+                         f"on {on}")
+    return shrd.replicate(mesh, kscene)
 
 
 def render_frame_mesh(mesh: shrd.Mesh, scenes: shrd.Replicated, camera,
                       prev_camera, state: FrameState, frame: int, noise_key: int,
                       sun_dir, accum_reset: bool, cfg: RenderConfig, in_w: int,
                       in_h: int, out_w: int, out_h: int, tonemap_name: str = "clamp",
-                      wscene=None, device=None):
+                      kscenes: shrd.Replicated | None = None, device=None):
     """`render_frame` over a pixel-block split: device k of `mesh`
     computes low-res block k (primary, path trace, tone map and pack) and
     output block k (TAAU), tracing against its replicas (`scenes.copies[k]`
-    and `wscene`'s), after gathering the full-image G-buffer, `res_prev`,
-    packed low-res frame and object ids onto itself. `state` is sharded
-    (`shard_state`). The blocks' launches are issued device after device
-    from this one thread, each under its device's CUDA scope. Returns
-    (packed_out, the new sharded state, aux), the frame and aux gathered
-    onto `device` and equal to `render_frame`'s bit for bit. A scene or
-    kernel scene that does not lie on its block's device raises
+    and `kscenes.copies[k]`, `replicate_kscene`; the plain tracer when
+    `kscenes` is None), after gathering the full-image G-buffer,
+    `res_prev`, packed low-res frame and object ids onto itself. `state` is
+    sharded (`shard_state`). The blocks' launches are issued device after
+    device from this one thread, each under its device's CUDA scope.
+    Returns (packed_out, the new sharded state, aux), the frame and aux
+    gathered onto `device` and equal to `render_frame`'s bit for bit. A
+    scene or kernel scene that does not lie on its block's device raises
     ValueError before any block launches."""
     device = mesh.devices[0] if device is None else device
     low = shrd.block_slices(in_w * in_h, mesh)
     out = shrd.block_slices(out_w * out_h, mesh)
-    kscenes = [_block_kscene(wscene, k) for k in range(mesh.size)]
+    kscenes = (None,) * mesh.size if kscenes is None else kscenes.copies
     for k, dev in enumerate(mesh.devices):
         for what, on in (("scene", scenes.copies[k].device),
-                         ("kernel scene", _tables_device(kscenes[k]))):
+                         ("kernel scene", shrd.device_of(kscenes[k]))):
             if on not in (None, dev):
                 raise ValueError(
                     f"render_frame_mesh: block {k}'s {what} lies on {on}, the block "
@@ -229,7 +224,7 @@ class Renderer:
                 single_instance=True, device=self.device,
             )
         self.wscene = None
-        self._meshed = (None, None)  # (a caller's kernel scene, it with the mesh)
+        self._kscenes = None  # under a mesh: (a kernel scene, its replicas)
         self.set_scene(scene)
         self.out_w, self.out_h = out_w, out_h
         self.in_w, self.in_h = self._internal_resolution(out_w, out_h)
@@ -252,42 +247,6 @@ class Renderer:
 
     # ---- scene ----
 
-    def _prepare_wscene(self, scene: SceneData) -> None:
-        """Kernel tables of the scene: a WideScene up to wide.MAX_TRIS
-        triangles, a StreamScene up to stream.MAX_TRIS; above that the
-        plain walk on the CPU, and a refusal on CUDA."""
-        on_cuda = self.device.type == "cuda"
-        if not self.cfg.use_pallas_trace:
-            if on_cuda:
-                raise RuntimeError(
-                    "use_pallas_trace=False on a CUDA device would trace with "
-                    "the plain PyTorch walk instead of the kernels; render on "
-                    "the CPU for the plain path"
-                )
-            self.wscene = None
-            return
-        if wide_mod.supports_scene(scene):
-            refit = wide_mod.refit_tables(self.wscene, scene)
-            if refit is not None:
-                SCENE_TABLES["refitted"] += 1
-                self.wscene = refit
-                return
-            self.wscene = wide_mod.prepare_scene(scene)
-        elif stream_mod.supports_scene(scene):
-            # large scenes: the streaming kernels (BASELINE config 5)
-            self.wscene = stream_mod.prepare_stream(scene)
-        elif on_cuda:
-            raise RuntimeError(
-                f"scene ({scene.n_tris} tris) exceeds every kernel's limit "
-                f"(stream kernel caps at 4M triangles); the plain PyTorch "
-                f"walk is not used on the card. Split the scene or reduce "
-                f"triangle count."
-            )
-        else:
-            self.wscene = None
-            return
-        SCENE_TABLES["prepared"] += 1
-
     def set_scene(self, scene: SceneData) -> None:
         """Swap the committed scene (moved to the renderer's device) and
         prepare its kernel tables. This is also the per-frame entry of a
@@ -296,31 +255,27 @@ class Renderer:
         were prepared from gets them rebuilt on its device
         (`wide.refit_tables`); any other scene, and every scene on the
         streaming route, is prepared in full on the host and uploaded, as
-        the JAX package re-prepares its Pallas scene. `SCENE_TABLES`
-        counts the two paths. Under a mesh the scene and the new tables
-        are replicated again."""
+        the JAX package re-prepares its Pallas scene (ops/route.prepare;
+        `route.SCENE_TABLES` counts the two paths). Under a mesh the scene
+        and the new tables are replicated again."""
         with telemetry.span("set_scene"):
             with telemetry.span("to_device"):
                 self.scene = scene.to(self.device)
-            self._prepare_wscene(self.scene)
+            self.wscene = route.prepare(self.scene, self.wscene,
+                                        self.cfg.use_pallas_trace)
             if self.mesh is not None:
                 # block k traces against device k's replicas
                 self._scenes = shrd.replicate(self.mesh, self.scene)
-                if self.wscene is not None:
-                    self.wscene = wide_mod.with_mesh(self.wscene, self.mesh)
+                self._kscene_replicas()
 
-    def _frame_kscene(self):
-        """The kernel scene the frame traces: `wscene`, or under a mesh, when
-        the caller set one without a mesh (`r.wscene =
-        binary.prepare_binary(r.scene)`), that scene with the mesh attached,
-        made once and kept while `wscene` is the same object."""
-        ks = self.wscene
-        if self.mesh is None or ks is None or ks.mesh is not None:
-            return ks
-        if self._meshed[0] is not ks:
-            mod = binary_mod if isinstance(ks, binary_mod.BinaryScene) else wide_mod
-            self._meshed = (ks, mod.with_mesh(ks, self.mesh))
-        return self._meshed[1]
+    def _kscene_replicas(self) -> shrd.Replicated:
+        """`wscene` replicated onto the mesh (`replicate_kscene`), made once
+        per kernel scene and kept while `wscene` is the same object: a
+        caller's `r.wscene = binary.prepare_binary(r.scene)` is replicated
+        when the first frame after the assignment renders."""
+        if self._kscenes is None or self._kscenes[0] is not self.wscene:
+            self._kscenes = (self.wscene, replicate_kscene(self.mesh, self.wscene))
+        return self._kscenes[1]
 
     def _internal_resolution(self, out_w: int, out_h: int) -> tuple[int, int]:
         """The config's internal resolution; under a mesh snapped so the
@@ -386,12 +341,13 @@ class Renderer:
             state = self.state.swapped_reservoirs() if self.frame > 0 else self.state
             args = (self.camera, self.prev_camera, state, self.frame, noise_key,
                     sun_dir, self._camera_moved, self.cfg, self.in_w, self.in_h,
-                    self.out_w, self.out_h, self.tonemap_name, self._frame_kscene())
+                    self.out_w, self.out_h, self.tonemap_name)
             if self.mesh is None:
-                packed, new_state, aux = render_frame(self.scene, *args)
+                packed, new_state, aux = render_frame(self.scene, *args, self.wscene)
             else:
                 packed, new_state, aux = render_frame_mesh(
-                    self.mesh, self._scenes, *args, device=self.device)
+                    self.mesh, self._scenes, *args, self._kscene_replicas(),
+                    device=self.device)
             self.state = new_state
             self.prev_camera = self.camera
             self._camera_moved = False

@@ -11,8 +11,8 @@ for bit:
   tables equal to a full prep's, and the previous tables' tensors unwritten;
 - the scenes that take the full prep: a new `commit()` with another
   topology, a scene of another builder with equal shapes, another alpha
-  flag, tables without maps, a caller's BinaryScene; a meshed WideScene
-  refits from its plain tables;
+  flag, tables without maps, a caller's BinaryScene; a mesh Renderer's
+  refit replicates the refit tables and renders the single-device frame;
 - the Renderer's `scene_tables` counter (one full prep, then one refit a
   frame) and its frames, equal to those of the full-prep route.
 """
@@ -31,6 +31,7 @@ from ilgpu_raytracing_tpu_torch.models import camera as tcamera
 from ilgpu_raytracing_tpu_torch.models import scene as tscene
 from ilgpu_raytracing_tpu_torch.models.cornell import build_cornell_scene
 from ilgpu_raytracing_tpu_torch.models.materials import Material
+from ilgpu_raytracing_tpu_torch.ops import route
 from ilgpu_raytracing_tpu_torch.ops.cuda import binary, wide
 from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
 from ilgpu_raytracing_tpu_torch.runtime import renderer as trenderer
@@ -51,7 +52,6 @@ def _assert_same_tables(got: wide.WideScene, want: wide.WideScene):
         assert torch.equal(_bits(g), _bits(w)), k
     for k in STATIC:  # repr: float for float, and NaN equal to NaN
         assert repr(getattr(got, k)) == repr(getattr(want, k)), k
-    assert got.mesh is None and got.replicas is None
 
 
 # ------------------------------------------------------------ octant orders
@@ -219,14 +219,33 @@ def test_refit_tables_falls_back_to_the_full_prep(case):
 
 
 def test_meshed_tables_refit_from_their_plain_tables():
+    """A mesh Renderer's refit `set_scene` refits (no full prep), holds the
+    refit tables replicated onto the mesh's device, and renders the
+    single-device Renderer's refit frame bit for bit."""
     b, inst, s = _soup_scene()
     mesh = shrd.make_mesh(devices=[torch.device("cpu")] * 2)
-    meshed = wide.with_mesh(wide.prepare_scene(s), mesh)
-    moved = tscene.refit_mesh_instance(b, s, inst, _positions(b, inst) * np.float32(1.5))
-    got = wide.refit_tables(meshed, moved)
-    _assert_same_tables(got, wide.prepare_scene(moved))
-    again = wide.with_mesh(got, meshed.mesh)
-    assert again.replicas is not None and again._refit_maps is got._refit_maps
+    cfg = RenderConfig(spp=1, max_depth=1, render_scale=1.0)
+    # read once: a refit writes the builder's positions
+    moved = _positions(b, inst) * np.float32(1.5)
+    frames = []
+    for m in (None, mesh):
+        r = trenderer.Renderer(16, 16, cfg, s, mesh=m, device="cpu")
+        start = dict(route.SCENE_TABLES)
+        r.set_scene(tscene.refit_mesh_instance(b, r.scene, inst, moved))
+        counts = {k: v - start[k] for k, v in route.SCENE_TABLES.items()}
+        assert counts == {"prepared": 0, "refitted": 1}
+        _assert_same_tables(r.wscene, wide.prepare_scene(r.scene))
+        if m is not None:
+            reps = r._kscene_replicas()
+            assert r._kscenes[0] is r.wscene
+            assert reps.copies[0] is reps.copies[1]  # one device, one replica
+            _assert_same_tables(reps.copies[0], r.wscene)
+            got, want = reps.copies[0]._refit_maps, r.wscene._refit_maps
+            assert torch.equal(got.slot_node, want.slot_node)
+            assert torch.equal(got.tri_prims, want.tri_prims)
+        with torch.inference_mode():
+            frames.append(r.render().clone())
+    assert torch.equal(frames[0], frames[1])
 
 
 # ------------------------------------------------------------ the Renderer
@@ -244,7 +263,7 @@ def _animate(full_prep: bool, monkeypatch):
         monkeypatch.setattr(wide, "refit_tables", lambda prev, scene: None)
     builder, scene = build_cornell_scene(tess=4, sphere_tess=(8, 12), blas_leaf_size=8,
                                          device="cpu")
-    start = dict(trenderer.SCENE_TABLES)
+    start = dict(route.SCENE_TABLES)
     cfg = RenderConfig(spp=1, max_depth=2, progressive_accumulation=True)
     r = trenderer.Renderer(out_w=W, out_h=H, cfg=cfg, scene=scene, device="cpu")
     base = _positions(builder, 0)
@@ -259,7 +278,7 @@ def _animate(full_prep: bool, monkeypatch):
                 (3.2 * math.sin(phase * 0.25), 0.2, 3.2 * math.cos(phase * 0.25)),
                 (0, 0, 0), (0, 1, 0), 40.0, W / H))
             frames.append(r.render().clone())
-    counts = {k: v - start[k] for k, v in trenderer.SCENE_TABLES.items()}
+    counts = {k: v - start[k] for k, v in route.SCENE_TABLES.items()}
     return r, frames, counts
 
 
@@ -280,7 +299,7 @@ def test_renderer_takes_the_full_prep_off_the_refit_path():
     the full prep; the next refit refits the tables that prep made."""
     b, inst, s = _soup_scene()
     r = trenderer.Renderer(16, 16, RenderConfig(spp=1, max_depth=1), s, device="cpu")
-    start = dict(trenderer.SCENE_TABLES)
+    start = dict(route.SCENE_TABLES)
     steps = [
         lambda: tscene.refit_mesh_instance(b, r.scene, inst, _positions(b, inst) * 1.1),
         lambda: _other_topology(b, inst, r.scene),
@@ -289,11 +308,11 @@ def test_renderer_takes_the_full_prep_off_the_refit_path():
     want = [(0, 1), (1, 1), (1, 2)]
     for step, (prepared, refitted) in zip(steps, want):
         r.set_scene(step())
-        assert trenderer.SCENE_TABLES["prepared"] - start["prepared"] == prepared
-        assert trenderer.SCENE_TABLES["refitted"] - start["refitted"] == refitted
+        assert route.SCENE_TABLES["prepared"] - start["prepared"] == prepared
+        assert route.SCENE_TABLES["refitted"] - start["refitted"] == refitted
         _assert_same_tables(r.wscene, wide.prepare_scene(r.scene))
     r.wscene = binary.prepare_binary(r.scene)
     r.set_scene(tscene.refit_mesh_instance(b, r.scene, inst, _positions(b, inst) * 1.2))
     assert isinstance(r.wscene, wide.WideScene)
-    assert trenderer.SCENE_TABLES["prepared"] - start["prepared"] == 2
+    assert route.SCENE_TABLES["prepared"] - start["prepared"] == 2
     _assert_same_tables(r.wscene, wide.prepare_scene(r.scene))

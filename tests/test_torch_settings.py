@@ -19,7 +19,7 @@ import torch
 
 from ilgpu_raytracing_tpu_torch.config import RenderConfig
 from ilgpu_raytracing_tpu_torch.models.cornell import build_cornell_scene, cornell_camera
-from ilgpu_raytracing_tpu_torch.ops import integrator, sky
+from ilgpu_raytracing_tpu_torch.ops import integrator, route, sky
 from ilgpu_raytracing_tpu_torch.ops.cuda import wide
 from ilgpu_raytracing_tpu_torch.ops.restir import Reservoirs
 
@@ -45,13 +45,13 @@ def scene32():
 
 def _shadow_calls(monkeypatch):
     calls = []
-    real = integrator._shadow
+    real = route.any_hit
 
     def spy(scene, ks, o, *a, **kw):
         calls.append(o.shape[0])
         return real(scene, ks, o, *a, **kw)
 
-    monkeypatch.setattr(integrator, "_shadow", spy)
+    monkeypatch.setattr(route, "any_hit", spy)
     return calls
 
 

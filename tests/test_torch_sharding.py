@@ -1,5 +1,5 @@
-"""The port's multi-device path (parallel/sharding.py, `with_mesh`,
-`Renderer(mesh=...)`) on a simulated CPU mesh.
+"""The port's multi-device path (parallel/sharding.py, the kernel scene's
+replicas, `Renderer(mesh=...)`) on a simulated CPU mesh.
 
 torch has one CPU device, so the mesh is `make_mesh(devices=[cpu] * 8)`:
 eight blocks, their launches and the gathers all on the CPU, the analog of
@@ -10,27 +10,24 @@ frame:
 - block boundaries and contents equal JAX's `shard_pixels` shards
   (`addressable_shards`' index and data); `check_divisible` and
   `divisible_internal_resolution` equal the JAX functions over a grid;
-- the ray split (tests/test_sharding.py's two tracer tests on the port):
-  1,000 rays (not divisible by 8: the pad path), 80% active, through
-  `wide.with_mesh` / `stream.with_mesh`, bit-equal to the unsharded call;
 - the mesh Renderer's frames (tests/test_sharding.py's renderer test on
   the port, Cornell tess=4, 64x32, spp=1, max_depth=2, rng_lock_noise=0,
   render_scale=1.0) bit-equal to the single-device Renderer's, also with
   `deferred_shadows` and `spp_pixel_major`, on the alpha-cutout courtyard,
-  after `set_scene` and after a resize whose output blocks start mid-row;
-  a state saved from the mesh loads in the JAX npz format and renders the
+  after `set_scene` and after a resize whose output blocks start mid-row,
+  the Renderer holding one replica of its kernel scene on each distinct
+  mesh device; a state saved from the mesh loads in the JAX npz format and renders the
   next frame bit-equal;
 - the 8-block `path_trace` meets the golden bar against
   tests/goldens/cornell_64.npy, as test_torch_frame.py holds the
   single-device path;
-- the binary route (K6) on a 4-block mesh: `binary.with_mesh`'s replicas
+- the binary route (K6) on a 4-block mesh: `replicate_kscene`'s replicas
   and its device-type refusal, a caller's BinaryScene under
-  `Renderer(mesh=...)` bit-equal to the single-device binary frame with
-  4x the K6 calls, and `render_frame_mesh` refusing a kernel scene off a
-  block's device before any K6 call.
+  `Renderer(mesh=...)` replicated once and bit-equal to the single-device
+  binary frame with 4x the K6 calls, and `render_frame_mesh` refusing a
+  kernel scene off a block's device before any K6 call.
 """
 
-import dataclasses
 import os
 
 import jax
@@ -49,11 +46,12 @@ from ilgpu_raytracing_tpu_torch.models.sponza_like import (
     sponza_camera,
 )
 from ilgpu_raytracing_tpu_torch.ops import integrator, sky
-from ilgpu_raytracing_tpu_torch.ops.cuda import binary, stream, wide
+from ilgpu_raytracing_tpu_torch.ops.cuda import binary, wide
 from ilgpu_raytracing_tpu_torch.ops.restir import Reservoirs
 from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
+from ilgpu_raytracing_tpu_torch.runtime import renderer as renderer_mod
 from ilgpu_raytracing_tpu_torch.runtime.framestate import FrameState
-from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer, replicate_kscene
 
 torch.set_num_threads(1)
 
@@ -176,47 +174,31 @@ def test_mesh_refusals(cornell):
         shrd.shard_pixels(mesh, torch.zeros(63))
 
 
-# ---------------------------------------------------------------- ray split
-
-
 def _rays(seed):
     rs = np.random.RandomState(seed)
-    n = 1000  # deliberately not divisible by the mesh (pad path)
+    n = 1000
     o = torch.as_tensor(rs.uniform(-0.5, 0.5, (n, 3)).astype(np.float32))
     d = torch.as_tensor(rs.normal(size=(n, 3)).astype(np.float32))
     d = (d / d.norm(dim=-1, keepdim=True)).contiguous()
     return o, d, torch.as_tensor(rs.rand(n) < 0.8)
 
 
-@pytest.mark.parametrize("route", ["wide", "stream"])
-def test_ray_split_matches_unsharded(mesh, route):
-    if route == "wide":
-        _, scene = build_cornell_scene(tess=4, sphere_tess=(8, 12), blas_leaf_size=8,
-                                       device="cpu")
-        mod, ks, seed = wide, wide.prepare_scene(scene), 11
-        closest, shadow = wide.trace_closest_wide, wide.shadow_occlusion_wide
-    else:
-        _, scene = build_cornell_scene(tess=4, sphere_tess=(8, 12), blas_leaf_size=64,
-                                       bvh_method="sah", device="cpu")
-        mod, ks, seed = stream, stream.prepare_stream(scene), 7
-        closest, shadow = stream.trace_closest_stream, stream.shadow_occlusion_stream
-    # a mesh of another device type than the tables: no block would run
-    # where its caller's tensors lie
-    with pytest.raises(ValueError, match="with_mesh: a mesh of"):
-        mod.with_mesh(ks, shrd.Mesh((torch.device("cuda", 0),) * 8))
-    ks_mesh = mod.with_mesh(ks, mesh)
-    assert ks_mesh.mesh is mesh and ks.mesh is None
-    assert all(rep is ks_mesh.replicas.copies[0] and rep.mesh is None
-               for rep in ks_mesh.replicas.copies)
-    o, d, active = _rays(seed)
-    r1 = closest(ks, o, d, active=active)
-    r2 = closest(ks_mesh, o, d, active=active)
-    assert int(r1.hit.sum()) > 100
-    for f in ("t", "prim", "inst", "bu", "bv"):
-        assert torch.equal(getattr(r1, f), getattr(r2, f)), f
-    s1 = shadow(ks, o, d, 10.0, active=active)
-    s2 = shadow(ks_mesh, o, d, 10.0, active=active)
-    assert s2.shape == (1000,) and torch.equal(s1, s2)
+def _tensors(ks):
+    return {k: v for k, v in vars(ks).items() if isinstance(v, torch.Tensor)}
+
+
+def _assert_replicated(r, mesh):
+    """The mesh Renderer holds one replica of its kernel scene on each
+    distinct mesh device (block k's on mesh.devices[k]), with the kernel
+    scene's tables."""
+    reps = r._kscene_replicas()
+    assert r._kscenes[0] is r.wscene and reps.placement == shrd.replicated(mesh)
+    assert len({id(c) for c in reps.copies}) == len(mesh.distinct_devices)
+    for rep, dev in zip(reps.copies, mesh.devices):
+        assert type(rep) is type(r.wscene)
+        assert _tensors(rep).keys() == _tensors(r.wscene).keys()
+        for k, v in _tensors(r.wscene).items():
+            assert getattr(rep, k).device == dev and torch.equal(getattr(rep, k), v), k
 
 
 # ---------------------------------------------------------------- frames
@@ -251,7 +233,8 @@ def test_mesh_renderer_matches_single_device(mesh, cornell, tmp_path):
     in-memory state carries frame 2 in the other frame tests."""
     cfg = RenderConfig(**_BASE)
     single, multi = _pair(cfg, cornell, cornell_camera, mesh, 1)
-    assert isinstance(multi.wscene, wide.WideScene) and multi.wscene.mesh is mesh
+    assert isinstance(multi.wscene, wide.WideScene)
+    _assert_replicated(multi, mesh)
     assert isinstance(multi.state.taa_color, shrd.PixelShards)
     _assert_same_frame(single, multi)
 
@@ -287,16 +270,21 @@ def test_mesh_renderer_alpha_scene(mesh, tmp_path):
 
 
 def test_mesh_renderer_set_scene_and_resize(mesh, cornell):
-    """`set_scene` (the refit path) keeps the mesh. After a resize to 64x36
-    at render scale 0.67 (internal 43x24: the mesh divides both pixel
-    counts) each output block of 288 pixels starts mid-row, so TAAU
-    resolves partial rows."""
+    """`set_scene` (the refit path) keeps the mesh: the new tables are
+    replicated onto it. After a resize to 64x36 at render scale 0.67
+    (internal 43x24: the mesh divides both pixel counts) each output block
+    of 288 pixels starts mid-row, so TAAU resolves partial rows."""
     cfg = RenderConfig(**{**_BASE, "render_scale": 0.67, "max_depth": 1})
     pair = []
     for m in (None, mesh):
         r = Renderer(64, 32, cfg, cornell, cornell_camera(64, 36), mesh=m, device="cpu")
+        before = r.wscene
         r.set_scene(cornell)
-        assert r.wscene.mesh is m
+        assert r.wscene is not before
+        if m is None:
+            assert r._kscenes is None
+        else:
+            _assert_replicated(r, m)
         r.resize(64, 36)
         assert (r.in_w, r.in_h, r.frame) == (43, 24, 0)
         r.render()
@@ -349,35 +337,43 @@ def mesh4():
     return shrd.make_mesh(devices=[CPU] * 4)
 
 
-def _tensors(bs):
-    return {k: v for k, v in vars(bs).items() if isinstance(v, torch.Tensor)}
-
-
 def test_binary_with_mesh_replicates_without_a_ray_split(mesh4, cornell):
+    """`replicate_kscene`: one replica of the BinaryScene's tables per
+    distinct device, `bs` itself untouched; a trace on a replica is the
+    trace on `bs` (no ray split anywhere); the plain tracer's None
+    replicates as None; a mesh of another device type than the tables is
+    refused, directly and when a mesh Renderer replicates a caller's
+    kernel scene."""
     bs = binary.prepare_binary(cornell)
-    bm = binary.with_mesh(bs, mesh4)
-    assert bm.mesh is mesh4 and bs.mesh is None and bs.replicas is None
-    assert len(bm.replicas.copies) == 4
-    # a repeated device shares one replica, which carries no mesh
-    assert all(rep is bm.replicas.copies[0] and rep.mesh is None
-               for rep in bm.replicas.copies)
-    rep = bm.replicas.copies[0]
+    tables = dict(_tensors(bs))
+    reps = replicate_kscene(mesh4, bs)
+    assert reps.placement == shrd.replicated(mesh4) and len(reps.copies) == 4
+    # a repeated device shares one replica
+    assert all(rep is reps.copies[0] for rep in reps.copies)
+    rep = reps.copies[0]
     assert rep.meta == bs.meta and rep.depth == bs.depth
-    assert _tensors(rep).keys() == _tensors(bs).keys()
-    for k, v in _tensors(bs).items():
+    assert _tensors(rep).keys() == tables.keys()
+    for k, v in tables.items():
         assert torch.equal(getattr(rep, k), v) and getattr(rep, k).device == CPU, k
-        assert getattr(bm, k) is v, k  # the meshed scene keeps its own tables
-    # no ray split: a direct trace on the meshed scene is the trace on bs
+        assert getattr(bs, k) is v, k  # the kernel scene keeps its own tables
     o, d, active = _rays(5)
     r1 = binary.trace_closest_binary(bs, o, d, active=active)
-    r2 = binary.trace_closest_binary(bm, o, d, active=active)
+    r2 = binary.trace_closest_binary(rep, o, d, active=active)
     assert int(r1.hit.sum()) > 100
     for f in ("t", "prim", "inst", "bu", "bv"):
         assert torch.equal(getattr(r1, f), getattr(r2, f)), f
     assert torch.equal(binary.shadow_occlusion_binary(bs, o, d, 10.0, active=active),
-                       binary.shadow_occlusion_binary(bm, o, d, 10.0, active=active))
+                       binary.shadow_occlusion_binary(rep, o, d, 10.0, active=active))
+    assert replicate_kscene(mesh4, None).copies == (None,) * 4
     with pytest.raises(ValueError, match="with_mesh: a mesh of"):
-        binary.with_mesh(bs, shrd.Mesh((torch.device("cuda", 0),) * 4))
+        replicate_kscene(shrd.Mesh((torch.device("cuda", 0),) * 4), bs)
+    r = Renderer(64, 32, RenderConfig(**_BASE), cornell, cornell_camera(64, 32),
+                 mesh=mesh4, device="cpu")
+    r.wscene = shrd.to_device(bs, "meta")
+    with pytest.raises(ValueError, match=r"with_mesh: a mesh of \['cpu'\] devices for "
+                                         r"tables on meta"):
+        r.render()
+    assert r.frame == 0
 
 
 def _count_k6(monkeypatch):
@@ -399,7 +395,7 @@ def test_mesh_renderer_binary_route(mesh4, cornell, monkeypatch):
     """A caller's BinaryScene (`r.wscene = prepare_binary(r.scene)`) under
     Renderer(mesh=...): the frames equal the single-device binary frames
     bit for bit, each block calls K6 as often as the single device, and
-    the mesh is attached once, not every frame."""
+    the BinaryScene is replicated once, not every frame."""
     calls = _count_k6(monkeypatch)
     cfg = RenderConfig(**_BASE)
     pair, per_frame = [], []
@@ -407,17 +403,18 @@ def test_mesh_renderer_binary_route(mesh4, cornell, monkeypatch):
         r = Renderer(64, 32, cfg, cornell, cornell_camera(64, 32), mesh=m, device="cpu")
         bs = binary.prepare_binary(r.scene)
         r.wscene = bs
-        meshed = []
+        replicas = []
         for _ in range(2):
             calls.update(closest=0, shadow=0)
             r.render()
             per_frame.append(dict(calls))
-            meshed.append(r._frame_kscene())
+            replicas.append(r._kscenes)
         assert r.wscene is bs
         if m is None:
-            assert meshed == [bs, bs]
+            assert replicas == [None, None]
         else:
-            assert meshed[0] is meshed[1] and meshed[0].mesh is mesh4
+            assert replicas[0] is replicas[1] and replicas[0][0] is bs
+            _assert_replicated(r, mesh4)
         pair.append(r)
     _assert_same_frame(*pair)
     single = per_frame[:2]
@@ -428,16 +425,18 @@ def test_mesh_renderer_binary_route(mesh4, cornell, monkeypatch):
 def test_render_frame_mesh_refuses_a_kernel_scene_off_its_block(mesh4, cornell,
                                                                 monkeypatch):
     """Block 1's replica on another device than block 1 (the meta device
-    stands in for a second card): ValueError before any block calls K6."""
+    stands in for a second card; a faulty replication hands the frame
+    these replicas): ValueError before any block calls K6."""
     calls = _count_k6(monkeypatch)
-    bm = binary.with_mesh(binary.prepare_binary(cornell), mesh4)
-    rep = bm.replicas.copies[0]
+    bs = binary.prepare_binary(cornell)
+    reps = replicate_kscene(mesh4, bs)
+    rep = reps.copies[0]
     off = shrd.to_device(rep, "meta")
-    bad = dataclasses.replace(bm, replicas=shrd.Replicated(
-        bm.replicas.placement, (rep, off, off, off)))
+    bad = shrd.Replicated(reps.placement, (rep, off, off, off))
+    monkeypatch.setattr(renderer_mod, "replicate_kscene", lambda mesh, ks: bad)
     r = Renderer(64, 32, RenderConfig(**_BASE), cornell, cornell_camera(64, 32),
                  mesh=mesh4, device="cpu")
-    r.wscene = bad
+    r.wscene = bs
     with pytest.raises(ValueError, match="block 1's kernel scene lies on meta"):
         r.render()
     assert calls == {"closest": 0, "shadow": 0}

@@ -2,11 +2,10 @@
 """The 1080p Cornell bench frame through `Renderer(mesh=...)` on every card
 of the machine, in turns with the single-device Renderer of the same seed
 (chip_smoke.py's `phase_mesh`, its bars included: frames bit-equal, K1/K2/K3
-launches n times the single-device ones, K1/K2 through `wide.with_mesh` on
-65,537 bench bounce lanes bit-equal to the unsharded calls), on the wide
-route and on the binary route (a caller's BinaryScene set as `r.wscene`,
-replicated onto each card once by the mesh Renderer: frames bit-equal, K6
-launches 3n + 5n and K3 6n a frame).
+launches n times the single-device ones, the kernel scene replicated onto
+each card once), on the wide route and on the binary route (a caller's
+BinaryScene set as `r.wscene`, replicated onto each card once by the mesh
+Renderer: frames bit-equal, K6 launches 3n + 5n and K3 6n a frame).
 
 Meshes: `make_mesh()` (all cards), and `cuda:0` repeated as many times (the
 simulated mesh: the same split and launches on one card). On one card
@@ -37,10 +36,6 @@ def main() -> int:
     import chip_smoke as cs
     from ilgpu_raytracing_tpu_torch.models.cornell import build_cornell_scene
     from ilgpu_raytracing_tpu_torch.ops import cuda as cu
-    from ilgpu_raytracing_tpu_torch.ops import rays
-    from ilgpu_raytracing_tpu_torch.ops.cuda import wide
-    from ilgpu_raytracing_tpu_torch.models.cornell import cornell_camera
-    from ilgpu_raytracing_tpu_torch.config import RenderConfig
     from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -52,21 +47,13 @@ def main() -> int:
     cu.build_all()
     _, scene = build_cornell_scene(tess=24, sphere_tess=(48, 72), blas_leaf_size=8,
                                    bvh_method="sah", device=dev)
-    ws = wide.prepare_scene(scene)
-    in_w, in_h = RenderConfig().internal_resolution(1920, 1080)
-    o, d = rays.generate_primary_rays(cornell_camera(1920, 1080), in_w, in_h, dev)
-    o = o.contiguous()
-    bmin = torch.amin(scene.inst_bmin, dim=0)
-    bmax = torch.amax(scene.inst_bmax, dim=0)
-    bo, bd, act, _ = cs._bounce_rays(scene, wide.trace_closest_wide(ws, o, d), o, d, 11,
-                                     ((bmin, 1.0 / (bmax - bmin)),))
-    bench = dict(scene=scene, ws=ws, bo=bo, bd=bd, act=act)
+    bench = dict(scene=scene)
     n_sim = count if count > 1 else 4
     meshes = (("make_mesh()", shrd.make_mesh()),
               (f"cuda:0 x {n_sim}", shrd.make_mesh(devices=[dev] * n_sim)))
     cs.MESH_FRAMES = args.frames
     counts = cs.phase_mesh(dev, bench, meshes)
-    cs.log(f"launches over the timed frames and the ray split: "
+    cs.log(f"launches over the timed frames: "
            f"{({k: v for k, v in counts.items() if v})}")
     return 0
 
