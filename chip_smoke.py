@@ -77,6 +77,21 @@ Phases:
      reference's weighting, every output equal bit for bit; the kernel's
      CUDA-event ms beside its byte bound and the plain body's ms; ptxas's
      report of csrc/restir.cu;
+  6s. hit shading: the bench frame's three `shade_hits` calls recorded
+     from a frame of an orbiting camera; the kernel (csrc/shade.cu) against
+     the plain body on the card on each call, every output equal bit for
+     bit; on the primary (901,120 lanes) and the first bounce's (1,802,240
+     lanes) calls the launch's own CUDA-event ms (arguments packed once,
+     the C entry alone in the loop) beside its byte bound, the wrapper's
+     ms called back to back and the plain body's ms; the same bar on the CPU cases of
+     ops/cuda/host_check (`SHADE_CASES`: Cornell, a small terrain's
+     spheres, a scene of textured, glass and transformed spheres and
+     textured two-sided grids, the courtyard's OBJ textures, clamped
+     records) moved to the card; three bench frames rendered with the
+     kernel and with the plain body in its place, packed frame and colour
+     bit-equal; ptxas's report of csrc/shade.cu. Every
+     main path checks `launches.shade` a frame (3 Cornell, 8 terrain, 3n
+     a mesh frame of n blocks);
   6a. the mesh: the bench frame through `Renderer(mesh=make_mesh())` (one
      card: a mesh of size 1) and `Renderer(mesh=make_mesh(devices=[cuda:0]
      * 4))`, one warm-up and 2 frames each in turns with the
@@ -162,7 +177,10 @@ Phases:
      whose 16 sorted calls are recorded: the sort-key kernel equal to the
      plain key on every lane of each, and on the first (1,802,240 lanes,
      32 boxes) the treelet key timed beside its byte bound and the plain
-     key's ms;
+     key's ms; then one more frame whose 8 `shade_hits` calls (the 1M-row
+     triangle tables, the mirror and lambert spheres, primary and bounces
+     0-6) are recorded: the shading kernel's surface equal to the plain
+     body's bit for bit on every call;
  19. K1/K2 vs the plain walk on the courtyard's 1280x720 primary rays (the
      opaque tables, has_alpha off, barycentrics on), at the bar of phase 4;
      K1 timed there, with its boxes, primitives and bound;
@@ -605,9 +623,9 @@ def _count_tables():
 
 
 def _reset_counts():
-    from ilgpu_raytracing_tpu_torch.ops.cuda import restir, sortkey
+    from ilgpu_raytracing_tpu_torch.ops.cuda import restir, shade, sortkey
 
-    for counts in _count_tables() + (restir.LAUNCHES, sortkey.LAUNCHES):
+    for counts in _count_tables() + (restir.LAUNCHES, sortkey.LAUNCHES, shade.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -626,16 +644,17 @@ def _want(**nonzero) -> dict:
 
 
 def _drive(label, r, frames, want_per_frame, around=contextlib.nullcontext,
-           restir_per_frame=None, sortkey_per_frame=None):
+           restir_per_frame=None, sortkey_per_frame=None, shade_per_frame=None):
     """One warm-up and `frames` timed frames of the Renderer, each copied to
     the host, with the launch counts set to 0 just before the timed frames
     and read just after (`around()` is entered around the timed frames).
     With `restir_per_frame`, the ReSTIR kernel's launches a frame must
     equal it; the sort-key kernel's must equal K3's (every sorted call
     computes one key), and with `sortkey_per_frame` its launches of each
-    variant (the other variants 0). Returns the launch counts of the timed
-    frames."""
-    from ilgpu_raytracing_tpu_torch.ops.cuda import restir, sortkey
+    variant (the other variants 0). With `shade_per_frame`, the shading
+    kernel's launches a frame must equal it. Returns the launch counts of
+    the timed frames."""
+    from ilgpu_raytracing_tpu_torch.ops.cuda import restir, shade, sortkey
 
     cfg = r.cfg
     r.render().cpu()  # warm-up
@@ -673,6 +692,11 @@ def _drive(label, r, frames, want_per_frame, around=contextlib.nullcontext,
     if restir_per_frame is not None:
         check(restir_frame == restir_per_frame,
               f"{label}: {restir_frame} ReSTIR launches a frame != {restir_per_frame}")
+    shade_frame = shade.LAUNCHES["shade"] / frames
+    log(f"{label} launches.shade per frame: {shade_frame}")
+    if shade_per_frame is not None:
+        check(shade_frame == shade_per_frame,
+              f"{label}: {shade_frame} shading launches a frame != {shade_per_frame}")
     sortkey_frame = {k: v / frames for k, v in sortkey.LAUNCHES.items()}
     log(f"{label} launches.sortkey per frame: {sortkey_frame}")
     check(sum(sortkey_frame.values()) == per_frame["sortpos"],
@@ -705,7 +729,8 @@ def phase_main_path(dev, bench):
     counts = _drive("Cornell main path", r, FRAMES,
                     _want(wide_closest=3, wide_shadow=5, sortpos=6),
                     restir_per_frame=r.cfg.max_depth,
-                    sortkey_per_frame=dict(morton=2 * r.cfg.max_depth))
+                    sortkey_per_frame=dict(morton=2 * r.cfg.max_depth),
+                    shade_per_frame=r.cfg.max_depth)
     _sortkey_bar("Cornell", r)
     return counts
 
@@ -854,6 +879,137 @@ def phase_restir(dev, bench, size=(1920, 1080)):
         check(not any(diff.values()), f"ReSTIR {label}: kernel != plain body {diff}")
 
 
+def _surface_bits_differ(a, b) -> dict:
+    """Lanes on which two Surfaces differ in any bit, per output."""
+    out = {}
+    for k in vars(a):
+        x, y = getattr(a, k), getattr(b, k)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        out[k] = int((x != y).reshape(x.shape[0], -1).any(dim=1).sum())
+    return out
+
+
+def _shade_calls(label, r):
+    """The `shade_hits` calls of one frame of `r`, recorded at
+    `traverse.shade_hits` with their lanes cloned: one launch a call."""
+    from ilgpu_raytracing_tpu_torch.ops import traverse
+    from ilgpu_raytracing_tpu_torch.ops.cuda import shade
+
+    calls = []
+    real = traverse.shade_hits
+
+    def record(scene, hit, o, d):
+        calls.append((scene, dataclasses.replace(
+            hit, **{k: v.clone() for k, v in vars(hit).items()}), o.clone(), d.clone()))
+        return real(scene, hit, o, d)
+
+    traverse.shade_hits = record
+    before = shade.LAUNCHES["shade"]
+    try:
+        r.render().cpu()
+    finally:
+        traverse.shade_hits = real
+    torch.cuda.synchronize()
+    check(len(calls) == r.cfg.max_depth and shade.LAUNCHES["shade"] - before == len(calls),
+          f"{label} shade: {len(calls)} calls and {shade.LAUNCHES['shade'] - before} "
+          f"launches in a frame of {r.cfg.max_depth} bounces")
+    return calls
+
+
+def _shade_bar(label, calls):
+    """Every recorded call: the kernel's surface equal to the plain body's
+    bit for bit."""
+    from ilgpu_raytracing_tpu_torch.ops import traverse
+
+    diff = [_surface_bits_differ(traverse.shade_hits_kernel(*a),
+                                 traverse.shade_hits_plain(*a)) for a in calls]
+    log(f"{label} shade: {len(calls)} calls of a frame "
+        f"({[a[2].shape[0] for a in calls]} lanes, "
+        f"{[int(a[1].hit.sum()) for a in calls]} hits), lanes whose bits differ from "
+        f"the plain body's {diff}")
+    check(not any(any(d.values()) for d in diff), f"{label} shade: kernel != plain {diff}")
+
+
+def _shade_kernel_ms(args, reps: int) -> float:
+    """The launch's own device ms: the arguments checked and packed once,
+    then only the C entry called between the CUDA events, so the host's
+    per-call checks do not pace the loop."""
+    import ctypes
+
+    from ilgpu_raytracing_tpu_torch.ops import cuda as cu
+    from ilgpu_raytracing_tpu_torch.ops.cuda import shade
+
+    scene, hit, o, d = args
+    packed, _out, _keep = shade.pack(scene, hit.t, hit.kind, hit.prim, hit.inst,
+                                     hit.bu, hit.bv, o, d)
+    lib, _ = shade.library()
+    stream = cu.stream_ptr(o)
+    return cuda_ms(lambda: cu.check(lib, "shade", lib.shade_hits(ctypes.byref(packed),
+                                                                 stream)), reps)
+
+
+def phase_shade(dev, bench, size=(1920, 1080)):
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.ops import cuda as cu
+    from ilgpu_raytracing_tpu_torch.ops import traverse
+    from ilgpu_raytracing_tpu_torch.ops.cuda import host_check
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    for line in cu.ptxas_info("shade"):
+        log(f"ptxas shade.cu: {line}")
+    r = Renderer(*size, RenderConfig(spp=2, max_depth=3), bench["scene"],
+                 _orbit_camera(0.0, *size), device=dev)
+    r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+    r.render()
+    r.set_camera(_orbit_camera(0.05, *size))
+    real = traverse.shade_hits
+    calls = _shade_calls("Cornell", r)
+    _shade_bar("Cornell", calls)
+    for label, args in (("primary", calls[0]), ("bounce 0", calls[1])):
+        n = args[2].shape[0]
+        ms_k = _shade_kernel_ms(args, 50)
+        ms_w = cuda_ms(lambda: traverse.shade_hits_kernel(*args), 20)
+        ms_p = cuda_ms(lambda: traverse.shade_hits_plain(*args), 3)
+        nb = 96 * n  # per lane the hit record, o and d in (48 B), the surface out (48 B)
+        b = bound(nb, 0)
+        log(f"shade {label}: {n} lanes ({int(args[1].hit.sum())} hits): kernel "
+            f"{ms_k:.4f} ms, {nb} bytes, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+            f"{100 * b['bound_ms'] / ms_k:.2f}% of it); wrapper calls back to back "
+            f"{ms_w:.4f} ms, plain body {ms_p:.3f} ms ({smi_line()})")
+    # whole frames: the kernel against the plain body in its place, from one seed
+    frames = {}
+    for arm, fn in (("kernel", traverse.shade_hits_kernel),
+                    ("plain", traverse.shade_hits_plain)):
+        rr = Renderer(*size, RenderConfig(spp=2, max_depth=3), bench["scene"],
+                      _orbit_camera(0.0, *size), device=dev)
+        rr.sun_azimuth, rr.sun_elevation = 0.3, 0.6
+        traverse.shade_hits = fn
+        try:
+            for k in range(3):
+                rr.set_camera(_orbit_camera(0.05 * k, *size))
+                frames.setdefault(arm, []).append((rr.render().cpu(),
+                                                   rr._last_aux["color"].cpu()))
+        finally:
+            traverse.shade_hits = real
+    same = [torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(frames["kernel"], frames["plain"])]
+    log(f"shade whole frames: 3 bench frames with the kernel and with the plain body in "
+        f"its place, packed frame and colour bit-equal: {same}")
+    check(all(same), f"shade whole frames differ: {same}")
+    for case in host_check.SHADE_CASES:
+        args = host_check.shade_case(case, 8)
+        args = dict(scene=args["scene"].to(dev), o=args["o"].to(dev), d=args["d"].to(dev),
+                    hit=dataclasses.replace(args["hit"], **{
+                        k: v.to(dev) for k, v in vars(args["hit"]).items()}))
+        diff = _surface_bits_differ(traverse.shade_hits_kernel(**args),
+                                    traverse.shade_hits_plain(**args))
+        kinds = {k: int(v.sum()) for k, v in host_check.shade_lanes(args).items()}
+        log(f"shade case {case}: {args['o'].shape[0]} lanes {kinds}, lanes whose bits "
+            f"differ from the plain body's {diff}")
+        check(not any(diff.values()), f"shade case {case}: kernel != plain body {diff}")
+
+
 def _meshes(dev):
     from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
 
@@ -871,6 +1027,7 @@ def _mesh_route(route, dev, bench, meshes, kscene, want):
     gathers' bytes of each arm's last frame, the internal pixel count)."""
     from ilgpu_raytracing_tpu_torch.config import RenderConfig
     from ilgpu_raytracing_tpu_torch.models.cornell import cornell_camera
+    from ilgpu_raytracing_tpu_torch.ops.cuda import shade
     from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
     from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
 
@@ -901,6 +1058,10 @@ def _mesh_route(route, dev, bench, meshes, kscene, want):
             ms = (time.monotonic() - t0) * 1e3
             counts = _read_counts()
             check(counts == want(n), f"mesh {route} {label} frame {f} launch counts {counts}")
+            # primary and bounces 0-1 shaded in each of the n blocks
+            check(shade.LAUNCHES["shade"] == 3 * n,
+                  f"mesh {route} {label} frame {f}: {shade.LAUNCHES['shade']} shading "
+                  f"launches, not {3 * n}")
             color = r._last_aux["color"]
             if ref is None:
                 ref = (packed, color)
@@ -948,7 +1109,7 @@ def phase_mesh(dev, bench, meshes=None):
         kernels = "K1 3n, K2 5n, K3 6n" if kscene is None else "K6 3n + 5n, K3 6n"
         log(f"mesh frames, {route} route: packed frame and aux color bit-equal to the "
             f"single-device Renderer on all {1 + MESH_FRAMES} frames of each mesh; "
-            f"launches per frame {kernels}"
+            f"launches per frame {kernels}, shading 3n"
             + ("" if kscene is None else f"; BinaryScene prepared once in {prep_s:.3f} s "
                f"and replicated once by each mesh Renderer"))
         log(f"mesh frame ms in turns, {route} route ({smi_line()}), {MESH_FRAMES} frames "
@@ -1568,8 +1729,10 @@ def phase_terrain_main(dev, scene):
     depth = r.cfg.max_depth
     counts = _drive("terrain main path", r, TERRAIN_FRAMES,
                     _want(stream_closest=depth, stream_shadow=depth + 2, sortpos=2 * depth),
-                    restir_per_frame=depth, sortkey_per_frame=dict(treelet=2 * depth))
+                    restir_per_frame=depth, sortkey_per_frame=dict(treelet=2 * depth),
+                    shade_per_frame=depth)
     _sortkey_bar("terrain", r)
+    _shade_bar("terrain", _shade_calls("terrain", r))
     return counts
 
 
@@ -2265,6 +2428,7 @@ def main() -> int:
     timed("Cornell parity", phase_parity, dev)
     cornell_counts = timed("Cornell main path", phase_main_path, dev, bench)
     timed("ReSTIR", phase_restir, dev, bench)
+    timed("shade", phase_shade, dev, bench)
     bench_counts = timed("bench_torch", phase_bench_torch, dev)
     mesh_counts = timed("mesh", phase_mesh, dev, bench)
     timed("parity", phase_config1_parity, dev)

@@ -1,10 +1,10 @@
-"""Run the port's CUDA kernels (K1/K2, K4/K5, K6, K7, K8, ReSTIR and the
-sort key) on the CPU.
+"""Run the port's CUDA kernels (K1/K2, K4/K5, K6, K7, K8, ReSTIR, the sort
+key and hit shading) on the CPU.
 
 A rehearsal for machines without a card or nvcc: compiles the trace sources
 (`csrc/wide_trace.cu`, `stream_trace.cu`, `binary_trace.cu`,
-`treelet_trace.cu`, `streamtreelet_trace.cu`), `csrc/restir.cu` and
-`csrc/sortkey.cu` for the host with g++ (a stub
+`treelet_trace.cu`, `streamtreelet_trace.cu`), `csrc/restir.cu`,
+`csrc/sortkey.cu` and `csrc/shade.cu` for the host with g++ (a stub
 `cuda_runtime.h`; each kernel launch becomes a loop over the grid;
 `-ffp-contract=off` in place of nvcc's `--fmad=false`), binds the results in
 place of the nvcc builds, and runs them through the wrappers' own launch
@@ -24,7 +24,10 @@ tallies are printed. The ReSTIR kernel is held to the plain
 `ops/sort.ray_key_plain` bit for bit in its three variants (`sortkey_case`,
 `compare_sortkey`: treelet boxes of the small terrain, the six-instance
 sphere scene and a hand-made table with ties, origins inside a box and
-rays that miss; zero, NaN and inf components). Exits 1 on a mismatch. It
+rays that miss; zero, NaN and inf components). Hit shading is held to the
+plain `ops/traverse.shade_hits_plain` on the plain walk's hit records
+(`shade_case`, `compare_shade`: every output bit for bit but a textured
+sphere's albedo, see SHADE_RTOL). Exits 1 on a mismatch. It
 says nothing about speed, and nothing about what nvcc accepts.
 
 Run from the repository root:
@@ -88,8 +91,9 @@ SOURCES = ("wide_trace", "stream_trace", "binary_trace", "treelet_trace",
            "streamtreelet_trace")
 RESTIR = "restir"
 SORTKEY = "sortkey"
+SHADE = "shade"
 # kernel<...><<<blocks, THREADS, smem, s>>>(args);  ->  a loop over the grid
-LAUNCH = re.compile(r"(\w+<[^>]*>)<<<blocks, THREADS, \w+, s>>>\((.*?)\);", re.S)
+LAUNCH = re.compile(r"(\w+(?:<[^>]*>)?)<<<blocks, THREADS, \w+, s>>>\((.*?)\);", re.S)
 LOOP = (r"for (unsigned b_ = 0; b_ < unsigned(blocks); ++b_) "
         r"for (unsigned t_ = 0; t_ < unsigned(THREADS); ++t_) { blockIdx.x = b_; "
         r"blockDim.x = THREADS; threadIdx.x = t_; \1(\2); }")
@@ -506,9 +510,210 @@ def check_sortkey(case: str, args: dict) -> bool:
     return diff == 0
 
 
+def _shade_builder_scene():
+    """A SceneBuilder scene of every branch of the shading: a textured
+    sphere in a rotated, scaled and moved instance; a sphere whose material
+    kd is zero (its own albedo shows); a glass sphere (its own ior, and a
+    kd with one zero channel, which shows); a sphere whose texture id lies past the table (white); two textured,
+    two-sided grids, one in a rotated instance, with uvs beyond [0, 1]
+    (wrap) and per-triangle materials: a 13x7 random texture, a checker, an
+    empty texture (white), a mirror material of ior 0 (read as 1)."""
+    from ilgpu_raytracing_tpu_torch.models.materials import (
+        SHADING_GLASS,
+        SHADING_MIRROR,
+        Material,
+    )
+    from ilgpu_raytracing_tpu_torch.models.scene import SceneBuilder
+
+    rng = np.random.default_rng(7)
+    b = SceneBuilder(blas_leaf_size=4, bvh_method="sah")
+    t_rand = b.add_texture_rgba(rng.integers(0, 256, (7, 13, 4), dtype=np.uint8))
+    t_check = b.add_checker_texture(16, 8, 2, (250, 30, 30, 255), (20, 200, 90, 255))
+    t_empty = b.add_texture_rgba(np.zeros((0, 4, 4), np.uint8))
+    mats = [b.add_material(m) for m in (
+        Material(kd=(1.0, 1.0, 1.0), diffuse_tex=t_rand),
+        Material(kd=(0.0, 0.0, 0.0)),
+        Material(kd=(0.0, 1.0, 1.0), shading=SHADING_GLASS, ior=1.5),
+        Material(kd=(0.3, 0.3, 0.9), diffuse_tex=99, two_sided=True),
+        Material(kd=(0.5, 0.5, 0.5), diffuse_tex=t_check, two_sided=True),
+        Material(kd=(0.2, 0.6, 0.3), shading=SHADING_MIRROR, ior=0.0),
+        Material(kd=(0.7, 0.2, 0.2), diffuse_tex=t_empty),
+        Material(kd=(0.9, 0.8, 0.1), diffuse_tex=t_rand, two_sided=True),
+    )]
+    s_tex = b.add_sphere((0.0, 0.0, 0.0), 0.6, material=mats[0])
+    s_zero = b.add_sphere((-1.5, 0.3, 0.5), 0.4, (0.9, 0.5, 0.1), mats[1])
+    s_glass = b.add_sphere((1.4, 0.2, -0.4), 0.45, material=mats[2], shading=SHADING_GLASS,
+                           ior=1.5)
+    s_bad = b.add_sphere((0.2, 1.3, -1.0), 0.3, material=mats[3])
+    b.add_sphere_instance([s_zero, s_glass, s_bad])
+    c, s_ = np.cos(0.7), np.sin(0.7)
+    rot_y = np.array([[c, 0.0, s_], [0.0, 1.0, 0.0], [-s_, 0.0, c]])
+    b.add_sphere_instance([s_tex], np.hstack([1.5 * rot_y, [[0.3], [0.4], [0.8]]]))
+
+    k = 4  # a k x k grid of quads over [-2, 2]^2 at y = 0
+    g = np.linspace(-2.0, 2.0, k + 1)
+    xs, zs = np.meshgrid(g, g)
+    pos = np.stack([xs.ravel(), np.zeros(xs.size), zs.ravel()], 1)
+    quads = [(r * (k + 1) + q, r * (k + 1) + q + 1, (r + 1) * (k + 1) + q)
+             for r in range(k) for q in range(k)]
+    tris = np.array(quads + [(a + 1, c_ + 1, c_) for a, _, c_ in quads], np.int32)
+    uv = np.stack([(pos[:, 0] + 2.0) - 1.3, (pos[:, 2] + 2.0) * 0.8 - 0.6], 1)
+    mesh_mats = np.array(mats[3:])[np.arange(tris.shape[0]) % 5]
+    c, s_ = np.cos(1.2), np.sin(1.2)
+    rot_x = np.array([[1.0, 0.0, 0.0], [0.0, c, -s_], [0.0, s_, c]])
+    for o2w in (np.hstack([np.eye(3), [[0.0], [-0.8], [0.0]]]),
+                np.hstack([rot_x, [[0.0], [0.5], [-2.0]]])):
+        b.add_mesh_instance(pos, tris, uv[tris], mesh_mats, o2w)
+    return b.commit("cpu")
+
+
+def _rays_at(lo, hi, n: int, seed: int):
+    """n rays from a sphere around the box [lo, hi] toward random points
+    inside it: every object is seen from every side."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    mid, radius = 0.5 * (lo + hi), 0.75 * float(np.linalg.norm(hi - lo)) + 1.0
+    u = rng.normal(size=(n, 3))
+    o = mid + radius * u / np.linalg.norm(u, axis=1, keepdims=True)
+    d = rng.uniform(lo, hi, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(o, dtype=torch.float32).contiguous(),
+            torch.as_tensor(d, dtype=torch.float32).contiguous())
+
+
+def _camera_lanes(scene, cam, w: int, h: int, seed: int):
+    """Primary rays of `cam` and one scattered bounce from each of their
+    hits, together: (o, d)."""
+    from ilgpu_raytracing_tpu_torch.ops import traverse
+
+    o, d = jittered_rays(cam, w, h, seed)
+    bo, bd = bounce_rays(scene, traverse.trace_closest(scene, o, d), o, d, seed + 1)
+    return torch.cat([o, bo]).contiguous(), torch.cat([d, bd]).contiguous()
+
+
+def _clamped_hits(hit, seed: int):
+    """`hit` with a seeded tenth of its lanes edited to the records the
+    gathers clamp: prim and inst -1 or past their tables, kind 0 on a hit,
+    t at the hit limit, +inf and NaN."""
+    from ilgpu_raytracing_tpu_torch.ops.traverse import HitRecord
+
+    rng = np.random.default_rng(seed)
+    n = hit.t.shape[0]
+    edit = torch.as_tensor(rng.integers(0, 10, n))
+    pick = lambda j, new, old: torch.where(edit == j, new, old)
+    i32 = lambda v: torch.full((n,), v, dtype=torch.int32)
+    return HitRecord(
+        t=pick(5, float(np.float32(1e29)), pick(6, float("inf"), pick(7, float("nan"),
+                                                                    hit.t))),
+        kind=pick(4, i32(0), hit.kind),
+        prim=pick(0, i32(-1), pick(1, i32(10 ** 6), hit.prim)),
+        inst=pick(2, i32(-1), pick(3, i32(99), hit.inst)),
+        bu=hit.bu, bv=hit.bv)
+
+
+def shade_case(case: str, seed: int) -> dict:
+    """Arguments of `ops/traverse.shade_hits` (scene, hit, o, d) for one of
+    SHADE_CASES, on CPU tensors, the hits from the plain walk."""
+    from ilgpu_raytracing_tpu_torch.models import cornell, sponza_like, terrain
+    from ilgpu_raytracing_tpu_torch.ops import traverse
+
+    if case == "cornell":
+        scene = cornell.build_cornell_scene(tess=4, sphere_tess=(8, 12), blas_leaf_size=8,
+                                            bvh_method="sah", device="cpu")[1]
+        o, d = _camera_lanes(scene, cornell.cornell_camera(64, 64), 64, 64, seed)
+    elif case == "terrain":
+        scene = terrain.build_terrain_scene(grid_x=64, grid_z=32, device="cpu")[1]
+        o, d = _camera_lanes(scene, terrain.terrain_camera(48, 32), 48, 32, seed)
+        so, sd = _rays_at((-0.9, 0.6, -0.9), (3.0, 2.5, 2.4), 1024, seed + 2)
+        o, d = torch.cat([o, so]).contiguous(), torch.cat([d, sd]).contiguous()
+    elif case == "courtyard":
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            scene = sponza_like.build_sponza_like_scene(tmp, device="cpu")[1]
+        o, d = _camera_lanes(scene, sponza_like.sponza_camera(64, 48), 64, 48, seed)
+    else:
+        scene = _shade_builder_scene()
+        o, d = _rays_at((-2.2, -1.5, -2.5), (2.2, 2.0, 2.2), 4096, seed)
+    hit = traverse.trace_closest(scene, o, d)
+    if case == "clamped":
+        hit = _clamped_hits(hit, seed)
+    return dict(scene=scene, hit=hit, o=o, d=d)
+
+
+SHADE_CASES = ("cornell", "terrain", "builder", "courtyard", "clamped")
+
+# Albedo of a textured sphere from the host build against the plain version
+# on the CPU: PyTorch's CPU float32 atan2 and acos (SLEEF's, vectorised) are
+# not the C library's to the last bit, so the sphere's (u, v), and the
+# bilinear sample there, may differ by a few ulp. Every other output, and
+# every other lane, is held exact.
+SHADE_RTOL = 1e-5
+SHADE_ATOL = 1e-6
+
+
+def shade_lanes(args: dict) -> dict:
+    """Lanes of `args` by what the shading does there (bool masks): miss,
+    sphere, tri, textured (a texture id >= 0), textured_sphere, flipped (a
+    two-sided triangle seen from its back)."""
+    from ilgpu_raytracing_tpu_torch.ops.texture import take
+    from ilgpu_raytracing_tpu_torch.ops.traverse import KIND_SPHERE, KIND_TRI
+    from ilgpu_raytracing_tpu_torch.utils import vec
+
+    sc, hit, d = args["scene"], args["hit"], args["d"]
+    hit_ = hit.hit
+    prim = torch.clamp(hit.prim, min=0)
+    sph = hit_ & (hit.kind == KIND_SPHERE)
+    tri = hit_ & ~sph
+    mat = torch.where(sph, take(sc.sph_mat, prim), take(sc.tri_mat, prim))
+    textured = hit_ & (take(sc.mat_diffuse_tex, mat) >= 0)
+    n = vec.cross(take(sc.tri_e1, prim), take(sc.tri_e2, prim))
+    w2o = take(sc.inst_w2o, torch.clamp(hit.inst, min=0))
+    flipped = (tri & (take(sc.mat_two_sided, mat) != 0)
+               & (vec.dot(n, vec.transform_vector(w2o, d)) > 0.0))
+    return dict(miss=~hit_, sphere=sph, tri=tri & (hit.kind == KIND_TRI), textured=textured,
+                textured_sphere=textured & sph, flipped=flipped)
+
+
+def compare_shade(args: dict) -> dict:
+    """The kernel (`ops/traverse.shade_hits_kernel`, a host build bound in
+    place of the nvcc one) and `shade_hits_plain` on `args`. Returns per
+    output the lanes that differ: every output in any bit, but the albedo
+    of a textured sphere beyond SHADE_RTOL / SHADE_ATOL."""
+    from ilgpu_raytracing_tpu_torch.ops import traverse
+
+    plain = traverse.shade_hits_plain(**args)
+    kern = traverse.shade_hits_kernel(**args)
+    loose = shade_lanes(args)["textured_sphere"]
+    out = {}
+    for k in vars(plain):
+        a, b = getattr(plain, k), getattr(kern, k)
+        if a.dtype != b.dtype or a.shape != b.shape or not b.is_contiguous():
+            out[k] = a.shape[0]
+            continue
+        bits = a.view(torch.int32) != b.view(torch.int32) if a.is_floating_point() else a != b
+        bad = bits.reshape(a.shape[0], -1).any(dim=1)
+        if k == "albedo":
+            near = torch.isclose(b, a, rtol=SHADE_RTOL, atol=SHADE_ATOL).all(dim=1)
+            bad = bad & ~(loose & near)
+        out[k] = int(bad.sum())
+    return out
+
+
+def check_shade(case: str, args: dict) -> bool:
+    """compare_shade, printed with the lanes of each kind; True when no
+    output differs."""
+    diff = compare_shade(args)
+    kinds = {k: int(v.sum()) for k, v in shade_lanes(args).items()}
+    ok = not any(diff.values())
+    print(f"shade {case}: {args['o'].shape[0]} lanes {kinds}, lanes that differ {diff} -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def main() -> int:
     torch.set_num_threads(1)  # one thread: the plain versions run as in the tests
-    libs = host_libraries(SOURCES + (RESTIR, SORTKEY))
+    libs = host_libraries(SOURCES + (RESTIR, SORTKEY, SHADE))
     cu.load_kernel_library = lambda name: (libs[name], 0.0)
     cu.stream_ptr = lambda t: None
 
@@ -561,6 +766,8 @@ def main() -> int:
         ok &= check_restir(case, restir_args(case, 5))
     for case in SORTKEY_CASES:
         ok &= check_sortkey(case, sortkey_case(case, 6))
+    for case in SHADE_CASES:
+        ok &= check_shade(case, shade_case(case, 8))
     return 0 if ok else 1
 
 

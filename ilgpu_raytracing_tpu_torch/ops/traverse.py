@@ -25,6 +25,7 @@ import torch
 
 from ilgpu_raytracing_tpu_torch.models.scene import SceneData
 from ilgpu_raytracing_tpu_torch.ops import texture as tex_ops
+from ilgpu_raytracing_tpu_torch.ops.cuda import shade as shade_kernel
 from ilgpu_raytracing_tpu_torch.ops.intersect import (
     T_EPS,
     T_HIT_MAX,
@@ -326,7 +327,26 @@ def shade_hits(scene: SceneData, hit: HitRecord, o: torch.Tensor,
                d: torch.Tensor) -> Surface:
     """Resolve hit records to surface attributes (the reference's per-hit
     attribute rules, SceneDeviceViews.cs:146-158, 208-222; obj_id keeps the
-    reference quirk: global tri index for meshes, -1 for spheres)."""
+    reference quirk: global tri index for meshes, -1 for spheres).
+
+    On CUDA tensors this is `shade_hits_kernel`, elsewhere
+    `shade_hits_plain`; the two are equal bit for bit on the card."""
+    fn = shade_hits_kernel if o.device.type == "cuda" else shade_hits_plain
+    return fn(scene, hit, o, d)
+
+
+def shade_hits_kernel(scene: SceneData, hit: HitRecord, o: torch.Tensor,
+                      d: torch.Tensor) -> Surface:
+    """`shade_hits` as one launch of csrc/shade.cu (ops/cuda/shade.py),
+    reading the scene's tables in place."""
+    return Surface(*shade_kernel.launch(scene, hit.t, hit.kind, hit.prim, hit.inst,
+                                        hit.bu, hit.bv, o, d))
+
+
+def shade_hits_plain(scene: SceneData, hit: HitRecord, o: torch.Tensor,
+                     d: torch.Tensor) -> Surface:
+    """`shade_hits` in PyTorch: the CPU path, and the definition that
+    csrc/shade.cu is held to."""
     n = o.shape[0]
     is_sph = hit.kind == KIND_SPHERE
     is_tri = hit.kind == KIND_TRI

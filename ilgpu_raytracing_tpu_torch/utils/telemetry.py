@@ -19,10 +19,11 @@ One module-level registry, `REGISTRY`, holds both.
   profiler's trace export renames an annotation called `kernel`.
 * **Counters.** Named dicts of integers (`counter`): each kernel module's
   `LAUNCHES` (card launches by kernel name: the six trace dicts, K3's
-  `launches.sortpos`, and ReSTIR's `launches.restir` and the sort key's
-  `launches.sortkey` (by variant: treelet, morton, octant), which have no
-  `kernel` span: their launches sit in the integrator's `restir` and
-  `sort` spans), `parallel/sharding.py`'s
+  `launches.sortpos`, and ReSTIR's `launches.restir`, the sort key's
+  `launches.sortkey` (by variant: treelet, morton, octant) and hit
+  shading's `launches.shade`, which have no `kernel` span: their launches
+  sit in the integrator's `restir`, `sort` and `shade` spans),
+  `parallel/sharding.py`'s
   `GATHER_BYTES`, and `LANES`, the lanes handed to each kernel's
   dispatch wrapper (`kernel`), on the card and on the CPU alike.
 

@@ -48,7 +48,8 @@ import torch
 
 FRAMES = 3
 OWN_KERNELS = ("trace_kernel", "anyhit_kernel", "binary_kernel", "treelet_kernel",
-               "hist_kernel", "scan_kernel", "rank_kernel", "restir_kernel", "key_kernel")
+               "hist_kernel", "scan_kernel", "rank_kernel", "restir_kernel", "key_kernel",
+               "shade_kernel")
 
 
 def span_table(records) -> list[tuple[str, float, int, int]]:
