@@ -82,6 +82,7 @@ def run(c: dict, bench: dict, seed: int, seconds: float, trace: bool, device,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
     t_j = time.perf_counter()
     j = judge_mod.Judge(scene, traffic, render, out_w, out_h, dt, device)
     jc = None if control is None else judge_mod.Judge(scene, traffic, render, out_w, out_h,
@@ -91,7 +92,9 @@ def run(c: dict, bench: dict, seed: int, seconds: float, trace: bool, device,
         log(f"judged frame {r['k']} (counter {r['counter']}"
             f"{', chain' if r['chain'] else ''}): "
             + ", ".join(f"{k} {v!r}" for k, v in r["program"].items()))
-    log(f"reference: {len(rows)} frames in {time.perf_counter() - t_j:.4f} s")
+    ref_peak = int(torch.cuda.max_memory_allocated(device)) if cuda else 0
+    log(f"reference: {len(rows)} frames in {time.perf_counter() - t_j:.4f} s; "
+        f"memory peak {ref_peak} B")
 
     limits = params["checks"]
     named = [judge_mod.numbers(r) for r in rows]

@@ -31,7 +31,9 @@ RENDER_KEYS = (
 def build_scene(spec: dict, build: dict, device):
     """(builder, committed scene) of a scene spec through SceneBuilder. A
     spec with `obj_files` is written to a temporary directory and loaded
-    as one instance through the program's OBJ/MTL/TGA loader."""
+    as one instance through the program's OBJ/MTL/TGA loader. A mesh with
+    no triangles adds no instance: the spheres' instance is then the
+    scene."""
     from ilgpu_raytracing_tpu_torch.models.materials import Material
     from ilgpu_raytracing_tpu_torch.models.scene import SceneBuilder
 
@@ -51,9 +53,13 @@ def build_scene(spec: dict, build: dict, device):
         b.add_material(Material(kd=tuple(m["kd"]), two_sided=bool(m["two_sided"]),
                                 shading=int(m["shading"]), ior=float(m["ior"])))
     mesh = spec["mesh"]
-    # copies: the builder keeps its arrays and a refit writes into them
-    b.add_mesh_instance(np.array(mesh["positions"], np.float32), np.array(mesh["tris"]),
-                        tri_mat=np.array(mesh["tri_mat"]))
+    if len(mesh["tris"]) == 0 and not spec["spheres"]:
+        raise ValueError("a scene spec needs at least one triangle or one sphere; this one "
+                         "has neither")
+    if len(mesh["tris"]):
+        # copies: the builder keeps its arrays and a refit writes into them
+        b.add_mesh_instance(np.array(mesh["positions"], np.float32), np.array(mesh["tris"]),
+                            tri_mat=np.array(mesh["tri_mat"]))
     if spec["spheres"]:
         ids = [b.add_sphere(s["center"], s["radius"], s["albedo"], s["material"],
                             s["shading"], s["ior"]) for s in spec["spheres"]]

@@ -109,8 +109,8 @@ class Scene:
     """Geometry for ray queries plus the shading rows of every primitive."""
 
     acc: accel.Accel
-    tri_rows: torch.Tensor  # (T, 12): e1 e2 kd two_sided shading ior
-    sph_rows: torch.Tensor  # (S, 9): center radius base_albedo shading ior
+    tri_rows: torch.Tensor  # (T, 12): e1 e2 kd two_sided shading ior; one row of 0 where T is 0
+    sph_rows: torch.Tensor  # (S, 9): center radius base_albedo shading ior; likewise
     # a textured scene's: the texture pool, corner UVs (T, 3, 2) and diffuse
     # texture (T,) of each triangle
     pool: texture.Pool | None = None
@@ -121,9 +121,9 @@ class Scene:
 
 def make_scene(spec: dict, device, round_to=None) -> Scene:
     """From a scene spec (`benchmark/scenes/<kind>.py`): materials, one
-    mesh (positions, tris, tri_mat) and spheres; a textured spec adds
-    `textures`, the mesh's `tri_uv` and the materials' `diffuse_tex`,
-    `alpha_tex` and `alpha_cutoff`."""
+    mesh (positions, tris, tri_mat; it may have no triangles) and spheres;
+    a textured spec adds `textures`, the mesh's `tri_uv` and the
+    materials' `diffuse_tex`, `alpha_tex` and `alpha_cutoff`."""
     mesh, mats, spheres = spec["mesh"], spec["materials"], spec["spheres"]
     textured = "textures" in spec
     if textured and any(mats[s["material"]].get("diffuse_tex", -1) >= 0 for s in spheres):
@@ -141,8 +141,11 @@ def make_scene(spec: dict, device, round_to=None) -> Scene:
     mk = lambda key: np.array([m[key] for m in mats], np.float32)
     kd, two, shade, ior = (mk("kd"), mk("two_sided"), mk("shading"), mk("ior"))
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
-    tri_rows = torch.cat([acc.e1, acc.e2, t(kd[tm]), t(two[tm])[:, None],
-                          t(shade[tm])[:, None], t(ior[tm])[:, None]], dim=1)
+    if tm.shape[0]:
+        tri_rows = torch.cat([acc.e1, acc.e2, t(kd[tm]), t(two[tm])[:, None],
+                              t(shade[tm])[:, None], t(ior[tm])[:, None]], dim=1)
+    else:
+        tri_rows = torch.zeros((1, 12), dtype=torch.float32, device=device)
     if spheres:
         base = []
         for s in spheres:
