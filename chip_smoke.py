@@ -92,6 +92,22 @@ Phases:
      bit-equal; ptxas's report of csrc/shade.cu. Every
      main path checks `launches.shade` a frame (3 Cornell, 8 terrain, 3n
      a mesh frame of n blocks);
+  6l. the bounce's lane updates: every `scatter` and `resolve` call of a
+     bench frame (1,802,240 lanes), of one with `dedup_sun_shadow` off
+     (the sun traced like any other light), and of a frame of the 16-spp sphere
+     scene of `benchmark/configs/oneweekend-16spp.json` (486 spheres of
+     glass, mirror and lambert, 4 bounces, 14,417,920 lanes) held to the
+     plain bodies bit for bit as it happens (csrc/bounce.cu, every output,
+     the RNG state included); the sphere frame's main path with its launch
+     counts (`launches.bounce` 4 + 4 a frame); both kernels' own CUDA-event
+     ms (arguments packed once, the C entry alone in the loop) on the first
+     bounce of each frame beside a lower bound on their bytes
+     (ops/cuda/bounce.needed_bytes) and the plain bodies' ms; three bench
+     frames rendered with the kernels and with the plain bodies in their
+     place, packed frame and colour bit-equal; ptxas's report of
+     csrc/bounce.cu. Every main path checks `launches.bounce` a frame (3 +
+     3 Cornell, 8 + 8 terrain, 3n + 3n a mesh frame of n blocks), and the
+     terrain main path holds its frame's calls to the plain bodies too;
   6a. the mesh: the bench frame through `Renderer(mesh=make_mesh())` (one
      card: a mesh of size 1) and `Renderer(mesh=make_mesh(devices=[cuda:0]
      * 4))`, one warm-up and 2 frames each in turns with the
@@ -623,9 +639,10 @@ def _count_tables():
 
 
 def _reset_counts():
-    from ilgpu_raytracing_tpu_torch.ops.cuda import restir, shade, sortkey
+    from ilgpu_raytracing_tpu_torch.ops.cuda import bounce, restir, shade, sortkey
 
-    for counts in _count_tables() + (restir.LAUNCHES, sortkey.LAUNCHES, shade.LAUNCHES):
+    for counts in _count_tables() + (restir.LAUNCHES, sortkey.LAUNCHES, shade.LAUNCHES,
+                                     bounce.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -644,7 +661,8 @@ def _want(**nonzero) -> dict:
 
 
 def _drive(label, r, frames, want_per_frame, around=contextlib.nullcontext,
-           restir_per_frame=None, sortkey_per_frame=None, shade_per_frame=None):
+           restir_per_frame=None, sortkey_per_frame=None, shade_per_frame=None,
+           bounce_per_frame=None):
     """One warm-up and `frames` timed frames of the Renderer, each copied to
     the host, with the launch counts set to 0 just before the timed frames
     and read just after (`around()` is entered around the timed frames).
@@ -652,9 +670,10 @@ def _drive(label, r, frames, want_per_frame, around=contextlib.nullcontext,
     equal it; the sort-key kernel's must equal K3's (every sorted call
     computes one key), and with `sortkey_per_frame` its launches of each
     variant (the other variants 0). With `shade_per_frame`, the shading
-    kernel's launches a frame must equal it. Returns the launch counts of
+    kernel's launches a frame must equal it, and with `bounce_per_frame`
+    each bounce kernel's (scatter, resolve). Returns the launch counts of
     the timed frames."""
-    from ilgpu_raytracing_tpu_torch.ops.cuda import restir, shade, sortkey
+    from ilgpu_raytracing_tpu_torch.ops.cuda import bounce, restir, shade, sortkey
 
     cfg = r.cfg
     r.render().cpu()  # warm-up
@@ -697,6 +716,11 @@ def _drive(label, r, frames, want_per_frame, around=contextlib.nullcontext,
     if shade_per_frame is not None:
         check(shade_frame == shade_per_frame,
               f"{label}: {shade_frame} shading launches a frame != {shade_per_frame}")
+    bounce_frame = {k: v / frames for k, v in bounce.LAUNCHES.items()}
+    log(f"{label} launches.bounce per frame: {bounce_frame}")
+    if bounce_per_frame is not None:
+        check(bounce_frame == dict(scatter=bounce_per_frame, resolve=bounce_per_frame),
+              f"{label}: bounce launches a frame {bounce_frame} != {bounce_per_frame} each")
     sortkey_frame = {k: v / frames for k, v in sortkey.LAUNCHES.items()}
     log(f"{label} launches.sortkey per frame: {sortkey_frame}")
     check(sum(sortkey_frame.values()) == per_frame["sortpos"],
@@ -730,7 +754,7 @@ def phase_main_path(dev, bench):
                     _want(wide_closest=3, wide_shadow=5, sortpos=6),
                     restir_per_frame=r.cfg.max_depth,
                     sortkey_per_frame=dict(morton=2 * r.cfg.max_depth),
-                    shade_per_frame=r.cfg.max_depth)
+                    shade_per_frame=r.cfg.max_depth, bounce_per_frame=r.cfg.max_depth)
     _sortkey_bar("Cornell", r)
     return counts
 
@@ -1010,6 +1034,154 @@ def phase_shade(dev, bench, size=(1920, 1080)):
         check(not any(diff.values()), f"shade case {case}: kernel != plain body {diff}")
 
 
+def _bounce_bar(label, r) -> dict:
+    """One frame of `r` with every `scatter` and `resolve` call held to the
+    plain body bit for bit as it happens (ops/cuda/host_check.compare_bounce
+    with nothing loose; the kernel's result goes on). Returns the first
+    bounce's two calls, cloned: {"scatter": args, "resolve": args}."""
+    from ilgpu_raytracing_tpu_torch.ops import integrator
+    from ilgpu_raytracing_tpu_torch.ops.cuda import host_check
+
+    diffs, lanes, first = [], [], {}
+    real = integrator.scatter, integrator.resolve
+
+    def spy(kind):
+        def run(*args):
+            d = host_check.compare_bounce(kind, list(args), loose=())
+            diffs.append({k: v for k, v in d.items() if v})
+            lanes.append(args[0].pos.shape[0])
+            first.setdefault(kind, [host_check.clone_args(a) for a in args])
+            return getattr(integrator, kind + "_kernel")(*args)
+        return run
+
+    integrator.scatter, integrator.resolve = spy("scatter"), spy("resolve")
+    try:
+        r.render().cpu()
+    finally:
+        integrator.scatter, integrator.resolve = real
+    torch.cuda.synchronize()
+    check(len(diffs) == 2 * r.cfg.max_depth,
+          f"{label} bounce: {len(diffs)} calls in a frame of {r.cfg.max_depth} bounces")
+    log(f"{label} bounce: {len(diffs)} scatter and resolve calls of a frame ({lanes} lanes), "
+        f"outputs whose bits differ from the plain body's {diffs}")
+    check(not any(diffs), f"{label} bounce: kernel != plain body {diffs}")
+    return first
+
+
+def _bounce_kernel_ms(kind: str, args, reps: int) -> tuple[float, int]:
+    """(the launch's own device ms, a lower bound on the bytes it moves,
+    ops/cuda/bounce.needed_bytes):
+    the arguments checked and packed once, then only the C entry called
+    between the CUDA events."""
+    import ctypes
+
+    from ilgpu_raytracing_tpu_torch.ops import cuda as cu
+    from ilgpu_raytracing_tpu_torch.ops import integrator
+    from ilgpu_raytracing_tpu_torch.ops.cuda import bounce
+
+    t, kw = getattr(integrator, kind + "_launch_args")(*args)
+    packed, out, keep = getattr(bounce, "pack_" + kind)(t, **kw)
+    lib, _ = bounce.library()
+    entry = getattr(lib, "bounce_" + kind)
+    stream = cu.stream_ptr(keep[0])
+    ms = cuda_ms(lambda: cu.check(lib, "bounce", entry(ctypes.byref(packed), stream)), reps)
+    return ms, bounce.needed_bytes(kind, t, out)
+
+
+def _bounce_times(label, first: dict, reps: int) -> None:
+    from ilgpu_raytracing_tpu_torch.ops import integrator
+
+    for kind in ("scatter", "resolve"):
+        args = first[kind]
+        n = args[0].pos.shape[0]
+        ms_k, nb = _bounce_kernel_ms(kind, args, reps)
+        ms_p = cuda_ms(lambda: getattr(integrator, kind + "_plain")(*args), 3)
+        b = bound(nb, 0)
+        log(f"bounce {kind}, {label} bounce 0: {n} lanes: kernel {ms_k:.4f} ms, {nb} bytes "
+            f"needed ({nb / n:.1f} a lane), bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+            f"{100 * b['bound_ms'] / ms_k:.2f}% of it), plain body {ms_p:.3f} ms "
+            f"({smi_line()})")
+
+
+def oneweekend_renderer(dev):
+    """A Renderer of the 16-spp sphere cell's scene and settings
+    (benchmark/configs/oneweekend-16spp.json, its sweep's first pose); also
+    the scene of tools/torch_frame_profile.py --scene oneweekend."""
+    from benchmark.harness.program import build_scene
+    from benchmark.scenes import oneweekend
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.models.camera import Camera
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark",
+                           "configs", "oneweekend-16spp.json")) as f:
+        conf = json.load(f)
+    spec = oneweekend.build(conf["scene"]["params"])
+    _, scene = build_scene(spec, conf["scene"]["build"], dev)
+    keys = {f.name for f in dataclasses.fields(RenderConfig)}
+    render = {k: tuple(v) if isinstance(v, list) else v for k, v in conf["render"].items()
+              if k in keys}
+    cfg = RenderConfig(**render)
+    cam = Camera.look_at((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 20.0,
+                         16.0 / 9.0)
+    r = Renderer(conf["render"]["out_w"], conf["render"]["out_h"], cfg, scene, cam,
+                 device=dev)
+    r.sun_azimuth, r.sun_elevation = cfg.sun_azimuth, cfg.sun_elevation
+    return r
+
+
+def phase_bounce(dev, bench, size=(1920, 1080)):
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.ops import cuda as cu
+    from ilgpu_raytracing_tpu_torch.ops import integrator
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    for line in cu.ptxas_info("bounce"):
+        log(f"ptxas bounce.cu: {line}")
+    r = Renderer(*size, RenderConfig(spp=2, max_depth=3), bench["scene"],
+                 _orbit_camera(0.0, *size), device=dev)
+    r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+    r.render()
+    r.set_camera(_orbit_camera(0.05, *size))
+    _bounce_times("Cornell", _bounce_bar("Cornell", r), 20)
+    # the sun traced like any other light: bounce 0 hands the sun's
+    # direction without its occlusion
+    r = Renderer(*size, RenderConfig(spp=2, max_depth=3, dedup_sun_shadow=False),
+                 bench["scene"], _orbit_camera(0.0, *size), device=dev)
+    r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+    first = _bounce_bar("Cornell, dedup_sun_shadow off", r)
+    check(first["scatter"][7] is None, "dedup_sun_shadow off: bounce 0 got a sun occlusion")
+    # whole frames: the kernels against the plain bodies in their place
+    frames = {}
+    real = integrator.scatter, integrator.resolve
+    for arm, fns in (("kernel", real),
+                     ("plain", (integrator.scatter_plain, integrator.resolve_plain))):
+        rr = Renderer(*size, RenderConfig(spp=2, max_depth=3), bench["scene"],
+                      _orbit_camera(0.0, *size), device=dev)
+        rr.sun_azimuth, rr.sun_elevation = 0.3, 0.6
+        integrator.scatter, integrator.resolve = fns
+        try:
+            for k in range(3):
+                rr.set_camera(_orbit_camera(0.05 * k, *size))
+                frames.setdefault(arm, []).append((rr.render().cpu(),
+                                                   rr._last_aux["color"].cpu()))
+        finally:
+            integrator.scatter, integrator.resolve = real
+    same = [torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(frames["kernel"], frames["plain"])]
+    log(f"bounce whole frames: 3 bench frames with the kernels and with the plain bodies in "
+        f"their place, packed frame and colour bit-equal: {same}")
+    check(all(same), f"bounce whole frames differ: {same}")
+    del r, rr, frames
+    # the 16-spp sphere scene: 14,417,920 lanes a bounce
+    r = oneweekend_renderer(dev)
+    depth = r.cfg.max_depth
+    _drive("sphere main path", r, 2,
+           _want(wide_closest=depth, wide_shadow=depth + 2, sortpos=2 * depth),
+           restir_per_frame=depth, shade_per_frame=depth, bounce_per_frame=depth)
+    _bounce_times("sphere", _bounce_bar("sphere", r), 10)
+
+
 def _meshes(dev):
     from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
 
@@ -1027,7 +1199,7 @@ def _mesh_route(route, dev, bench, meshes, kscene, want):
     gathers' bytes of each arm's last frame, the internal pixel count)."""
     from ilgpu_raytracing_tpu_torch.config import RenderConfig
     from ilgpu_raytracing_tpu_torch.models.cornell import cornell_camera
-    from ilgpu_raytracing_tpu_torch.ops.cuda import shade
+    from ilgpu_raytracing_tpu_torch.ops.cuda import bounce, shade
     from ilgpu_raytracing_tpu_torch.parallel import sharding as shrd
     from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
 
@@ -1062,6 +1234,9 @@ def _mesh_route(route, dev, bench, meshes, kscene, want):
             check(shade.LAUNCHES["shade"] == 3 * n,
                   f"mesh {route} {label} frame {f}: {shade.LAUNCHES['shade']} shading "
                   f"launches, not {3 * n}")
+            check(bounce.LAUNCHES == dict(scatter=3 * n, resolve=3 * n),
+                  f"mesh {route} {label} frame {f}: bounce launches {bounce.LAUNCHES}, not "
+                  f"{3 * n} each")
             color = r._last_aux["color"]
             if ref is None:
                 ref = (packed, color)
@@ -1730,9 +1905,10 @@ def phase_terrain_main(dev, scene):
     counts = _drive("terrain main path", r, TERRAIN_FRAMES,
                     _want(stream_closest=depth, stream_shadow=depth + 2, sortpos=2 * depth),
                     restir_per_frame=depth, sortkey_per_frame=dict(treelet=2 * depth),
-                    shade_per_frame=depth)
+                    shade_per_frame=depth, bounce_per_frame=depth)
     _sortkey_bar("terrain", r)
     _shade_bar("terrain", _shade_calls("terrain", r))
+    _bounce_bar("terrain", r)
     return counts
 
 
@@ -2429,6 +2605,7 @@ def main() -> int:
     cornell_counts = timed("Cornell main path", phase_main_path, dev, bench)
     timed("ReSTIR", phase_restir, dev, bench)
     timed("shade", phase_shade, dev, bench)
+    timed("bounce", phase_bounce, dev, bench)
     bench_counts = timed("bench_torch", phase_bench_torch, dev)
     mesh_counts = timed("mesh", phase_mesh, dev, bench)
     timed("parity", phase_config1_parity, dev)

@@ -3,9 +3,10 @@ JAX package's ops/pallas/): the trace kernels K1/K2 (`wide`), K4/K5
 (`stream`), K6 (`binary`), K7 (`treelet`), K8 (`streamtreelet`), the
 counting sort K3 (`sortpos`) and the sort key it sorts by (`sortkey`),
 ReSTIR DI (`restir`: candidates, reuse and selection of a bounce in one
-launch) and hit shading (`shade`: a hit record to its surface in one
-launch). `sortkey`, `restir` and `shade` port no Pallas kernel: in the JAX
-package they are XLA-fused glue.
+launch), hit shading (`shade`: a hit record to its surface in one launch)
+and the bounce's lane updates (`bounce`: one launch after ReSTIR, one after
+the traces). `sortkey`, `restir`, `shade` and `bounce` port no Pallas
+kernel: in the JAX package they are XLA-fused glue.
 
 Sources live in `csrc/`; each is compiled by nvcc for sm_90a into a shared
 library with a plain C interface (`utils/build.py`: at first use, into the
@@ -100,6 +101,7 @@ def build_all() -> float:
 
     from ilgpu_raytracing_tpu_torch.ops.cuda import (
         binary,
+        bounce,
         restir,
         shade,
         sortkey,
@@ -110,7 +112,8 @@ def build_all() -> float:
         wide,
     )
 
-    mods = (wide, stream, sortpos, binary, treelet, streamtreelet, restir, sortkey, shade)
+    mods = (wide, stream, sortpos, binary, treelet, streamtreelet, restir, sortkey, shade,
+            bounce)
     t0 = time.monotonic()
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:
         for f in [pool.submit(m.library) for m in mods]:

@@ -1,11 +1,11 @@
 """Run the port's CUDA kernels (K1/K2, K4/K5, K6, K7, K8, ReSTIR, the sort
-key and hit shading) on the CPU.
+key, hit shading and the bounce's lane updates) on the CPU.
 
 A rehearsal for machines without a card or nvcc: compiles the trace sources
 (`csrc/wide_trace.cu`, `stream_trace.cu`, `binary_trace.cu`,
 `treelet_trace.cu`, `streamtreelet_trace.cu`), `csrc/restir.cu`,
-`csrc/sortkey.cu` and `csrc/shade.cu` for the host with g++ (a stub
-`cuda_runtime.h`; each kernel launch becomes a loop over the grid;
+`csrc/sortkey.cu`, `csrc/shade.cu` and `csrc/bounce.cu` for the host with
+g++ (a stub `cuda_runtime.h`; each kernel launch becomes a loop over the grid;
 `-ffp-contract=off` in place of nvcc's `--fmad=false`), binds the results in
 place of the nvcc builds, and runs them through the wrappers' own launch
 path on CPU tensors. Scenes: the small terrain and the leaf-64 Cornell box
@@ -27,8 +27,12 @@ sphere scene and a hand-made table with ties, origins inside a box and
 rays that miss; zero, NaN and inf components). Hit shading is held to the
 plain `ops/traverse.shade_hits_plain` on the plain walk's hit records
 (`shade_case`, `compare_shade`: every output bit for bit but a textured
-sphere's albedo, see SHADE_RTOL). Exits 1 on a mismatch. It
-says nothing about speed, and nothing about what nvcc accepts.
+sphere's albedo, see SHADE_RTOL). The bounce kernels are held to the plain
+`ops/integrator.scatter_plain` and `resolve_plain` on every call of recorded
+CPU frames and on seeded corner lanes (`bounce_case`, `compare_bounce`:
+every output bit for bit but three of `scatter`'s, see BOUNCE_RTOL). Exits
+1 on a mismatch. It says nothing about speed, and nothing about what nvcc
+accepts.
 
 Run from the repository root:
     python3 -m ilgpu_raytracing_tpu_torch.ops.cuda.host_check
@@ -37,6 +41,7 @@ Run from the repository root:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import re
 import subprocess
@@ -92,6 +97,7 @@ SOURCES = ("wide_trace", "stream_trace", "binary_trace", "treelet_trace",
 RESTIR = "restir"
 SORTKEY = "sortkey"
 SHADE = "shade"
+BOUNCE = "bounce"
 # kernel<...><<<blocks, THREADS, smem, s>>>(args);  ->  a loop over the grid
 LAUNCH = re.compile(r"(\w+(?:<[^>]*>)?)<<<blocks, THREADS, \w+, s>>>\((.*?)\);", re.S)
 LOOP = (r"for (unsigned b_ = 0; b_ < unsigned(blocks); ++b_) "
@@ -711,9 +717,239 @@ def check_shade(case: str, args: dict) -> bool:
     return ok
 
 
+def clone_args(x):
+    """A deep copy of a recorded argument: tensors cloned, through
+    dataclasses and dicts of them; anything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: clone_args(v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: clone_args(getattr(x, f.name))
+                                         for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+def record_bounces(renderer, frames: int = 1) -> list:
+    """The `ops/integrator.scatter` and `resolve` calls of `frames` frames
+    of `renderer`, in order: ("scatter" | "resolve", positional arguments
+    cloned). The frames run the plain bodies on CPU tensors."""
+    from ilgpu_raytracing_tpu_torch.ops import integrator
+
+    calls = []
+    real = integrator.scatter, integrator.resolve
+
+    def spy(kind, fn):
+        def run(*args):
+            calls.append((kind, [clone_args(a) for a in args]))
+            return fn(*args)
+        return run
+
+    integrator.scatter, integrator.resolve = spy("scatter", real[0]), spy("resolve", real[1])
+    try:
+        for _ in range(frames):
+            renderer.render()
+    finally:
+        integrator.scatter, integrator.resolve = real
+    return calls
+
+
+def _bounce_frame(case: str):
+    """(scene, camera, RenderConfig) of a scene-recorded BOUNCE_CASES case at
+    48x32 (32x21 traced)."""
+    import tempfile
+
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.models import cornell, sponza_like, terrain
+    from ilgpu_raytracing_tpu_torch.models.camera import Camera
+    from ilgpu_raytracing_tpu_torch.models.scene import build_default_scene
+
+    w, h = 48, 32
+    if case in ("cornell", "deferred", "cornell_no_dedup"):
+        scene = cornell.build_cornell_scene(tess=4, sphere_tess=(8, 12), device="cpu")[1]
+        return scene, cornell.cornell_camera(w, h), RenderConfig(
+            spp=2, max_depth=3, deferred_shadows=case == "deferred",
+            dedup_sun_shadow=case != "cornell_no_dedup")
+    if case == "terrain":
+        scene = terrain.build_terrain_scene(grid_x=64, grid_z=32, blas_leaf_size=8,
+                                            device="cpu")[1]
+        return scene, terrain.terrain_camera(w, h), RenderConfig(spp=2, max_depth=3)
+    if case == "alpha":
+        with tempfile.TemporaryDirectory() as tmp:
+            scene = sponza_like.build_sponza_like_scene(tmp, device="cpu")[1]
+        return scene, sponza_like.sponza_camera(w, h), RenderConfig(spp=2, max_depth=3)
+    # the default six spheres: glass, mirror and lambert; roulette from bounce 1
+    scene = build_default_scene(single_instance=False, device="cpu")[1]
+    return scene, Camera.create(w, h), RenderConfig(
+        spp=4, max_depth=4, rr_start_depth=1,
+        shadow_rr_lum=0.0 if case == "spheres_no_shadow_rr" else 0.3)
+
+
+def _edge_lanes(n: int, seed: int, cfg, final: bool) -> list:
+    """Seeded lanes of one bounce that reach the branches' corners, as
+    recorded calls [("scatter", args), ("resolve", args)]: every shading
+    code (and one the integrator does not know), glass seen from inside at
+    grazing angles (total internal reflection), glass of zero albedo and of
+    ior 0 and -1, dead lanes, a tenth of the selections exactly this
+    frame's sun and a tenth one ulp off it in one component (a stale wi),
+    zero and NaN throughput, the bounce at `rr_start_depth`; the scatter
+    ray's hits at, below and above the hit limit."""
+    from ilgpu_raytracing_tpu_torch.ops import integrator, restir, sky, traverse
+    from ilgpu_raytracing_tpu_torch.ops.intersect import T_HIT_MAX, T_INF
+    from ilgpu_raytracing_tpu_torch.utils import vec
+
+    rng = np.random.default_rng(seed)
+    g = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt)
+    unit = lambda: vec.normalize(g(rng.normal(size=(n, 3))))
+    pick = lambda p: g(rng.random(n) < p, torch.bool)
+    nrm = unit()
+    view = unit()
+    # a fifth inside the glass, leaving it at up to 80 degrees from the
+    # normal: past the critical angle on most (total internal reflection)
+    glass_in = pick(0.2)
+    tangent = vec.normalize(vec.cross(nrm, unit()))
+    lift = g(rng.uniform(0.18, 1.0, n))[:, None]
+    view = torch.where(glass_in[:, None], vec.normalize(tangent + nrm * lift), view)
+    alb = g(rng.uniform(0, 1, (n, 3)))
+    alb = torch.where(pick(0.15)[:, None], 0.0, alb)
+    thr = g(rng.uniform(0, 1.5, (n, 3)))
+    thr = torch.where(pick(0.05)[:, None], 0.0, thr)
+    thr[g(rng.random(n) < 0.01, torch.bool), 1] = float("nan")
+    shade = g(rng.choice([0, 1, 2, 2, 3], n), torch.int32)
+    shade = torch.where(glass_in, 2, shade).to(torch.int32)
+    ior = g(rng.choice([1.5, 1.33, 0.0, -1.0, 2.4], n))
+
+    def reservoirs():
+        return restir.Reservoirs(
+            L=g(rng.uniform(0, 3, (n, 3))), wi=unit(), pdf=g(rng.uniform(0.05, 1, n)),
+            w=g(rng.uniform(0, 1, n)), w_sum=g(rng.uniform(0, 5, n)),
+            m=g(rng.integers(0, 20, n), torch.int32),
+            light_id=g(rng.integers(1, 3, n), torch.int32), W=g(rng.uniform(0, 2, n)))
+
+    sun = vec.normalize(g(sky.sun_direction(0.3, 0.6)))
+    wi = unit()
+    exact, stale = pick(0.1), pick(0.1)
+    # one ulp off the sun in one component a lane
+    axis = torch.nn.functional.one_hot(g(rng.integers(0, 3, n), torch.int64), 3).bool()
+    off = torch.where(axis, torch.nextafter(sun, torch.ones(3)), sun)
+    wi = torch.where(stale[:, None], off, wi)
+    wi = torch.where(exact[:, None], sun, wi)
+    lanes = integrator.PathLanes(
+        pos=g(rng.uniform(-3, 3, (n, 3))), nrm=nrm, alb=alb, shade=shade, ior=ior, thr=thr,
+        li=g(rng.uniform(0, 2, (n, 3))), alive=pick(0.85), view=view,
+        state=g(rng.integers(1, 2 ** 32, n), torch.int64), wrote=pick(0.3),
+        res_cur=reservoirs())
+    res_out = reservoirs()
+    sel = dict(ok=pick(0.8), wi=wi, contrib=g(rng.uniform(0, 2, (n, 3))),
+               is_sun=pick(0.5) | exact | stale)
+    args = [lanes, g(rng.integers(1, 2 ** 32, n), torch.int64), res_out, sel, cfg,
+            cfg.rr_start_depth, final, pick(0.5), sun]
+    sc = integrator.scatter_plain(*args)
+    t = g(rng.uniform(0.1, 10, n))
+    t = torch.where(pick(0.3), T_INF, t)
+    t = torch.where(pick(0.05), float(np.float32(T_HIT_MAX)), t)
+    t = torch.where(pick(0.05), float(np.nextafter(np.float32(T_HIT_MAX), np.float32(0))), t)
+    i32 = lambda: torch.zeros(n, dtype=torch.int32)
+    hit = traverse.HitRecord(t=t, kind=i32(), prim=i32(), inst=i32(), bu=t, bv=t)
+    surf = traverse.Surface(pos=g(rng.uniform(-3, 3, (n, 3))), normal=unit(),
+                            albedo=g(rng.uniform(0, 1, (n, 3))),
+                            shading=g(rng.integers(0, 3, n), torch.int32),
+                            ior=g(rng.uniform(1, 2, n)), obj_id=i32())
+    occ = pick(0.4)
+    res = [lanes, sc, cfg, occ] + ([pick(0.5), None, None] if final else [None, hit, surf])
+    return [("scatter", args), ("resolve", res)]
+
+
+def bounce_case(case: str, seed: int) -> list:
+    """The recorded calls of one of BOUNCE_CASES, on CPU tensors:
+    [("scatter" | "resolve", positional arguments), ...]. A scene case is
+    one frame of its scene (every bounce: the sun substitution at bounce 0
+    but in `cornell_no_dedup`, which traces the sun like any other light,
+    roulette from `rr_start_depth`, the final bounce's sky test or, with
+    alpha, its closest hit); an `edges` case is `_edge_lanes`."""
+    from ilgpu_raytracing_tpu_torch.config import RenderConfig
+    from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
+
+    if case.startswith("edges"):
+        cfg = RenderConfig(shadow_rr_lum=0.0 if case == "edges_no_shadow_rr" else 0.3)
+        return _edge_lanes(3000, seed, cfg, final=case != "edges")
+    scene, cam, cfg = _bounce_frame(case)
+    cfg = dataclasses.replace(cfg, rng_salt=seed)
+    r = Renderer(48, 32, cfg, scene, cam, device="cpu")
+    r.sun_azimuth, r.sun_elevation = 0.3, 0.6
+    return record_bounces(r)
+
+
+BOUNCE_CASES = ("cornell", "terrain", "spheres", "spheres_no_shadow_rr", "deferred", "alpha",
+                "cornell_no_dedup", "edges", "edges_final", "edges_no_shadow_rr")
+
+# Float outputs of the host build's `scatter` against the plain body on the
+# CPU: PyTorch's CPU float32 sqrt, rsqrt, cos and sin are not the C
+# library's to the last bit, so the lambert sample and the refracted
+# direction (`new_dir`), the scatter ray's origin offset along them
+# (`ray_o`) and the sky weight read along them (`sky_w`) may differ by a
+# few ulp. Every other output, integers, masks and the RNG state included,
+# and every output of `resolve` is held exact.
+BOUNCE_RTOL = 1e-5
+BOUNCE_ATOL = 1e-6
+BOUNCE_LOOSE = ("new_dir", "ray_o", "sky_w")
+
+
+def lane_fields(x, prefix="") -> dict:
+    """The tensors of a Scattered or PathLanes, reservoir fields as res.<k>."""
+    out = {}
+    for f in dataclasses.fields(x):
+        v = getattr(x, f.name)
+        if isinstance(v, torch.Tensor):
+            out[prefix + f.name] = v
+        elif v is not None:
+            out.update(lane_fields(v, "res."))
+    return out
+
+
+def compare_bounce(kind: str, args: list, loose=BOUNCE_LOOSE) -> dict:
+    """One recorded call through the kernel (`ops/integrator.scatter_kernel`
+    or `resolve_kernel`: on the CPU a host build bound in place of the nvcc
+    one) and the plain body. Returns per output the lanes that differ: any
+    bit (NaN against NaN aside), but `loose` outputs of `scatter` beyond
+    BOUNCE_RTOL / BOUNCE_ATOL; an output missing on one side counts every
+    lane."""
+    from ilgpu_raytracing_tpu_torch.ops import integrator
+
+    plain = lane_fields(getattr(integrator, kind + "_plain")(*args))
+    kern = lane_fields(getattr(integrator, kind + "_kernel")(*args))
+    out = {}
+    for k, a in plain.items():
+        b = kern.get(k)
+        if b is None or a.dtype != b.dtype or a.shape != b.shape:
+            out[k] = a.shape[0]
+            continue
+        if a.is_floating_point():
+            bad = (a.view(torch.int32) != b.view(torch.int32)) & ~(a.isnan() & b.isnan())
+            if kind == "scatter" and k in loose:
+                bad = bad & ~torch.isclose(b, a, rtol=BOUNCE_RTOL, atol=BOUNCE_ATOL)
+        else:
+            bad = a != b
+        out[k] = int(bad.reshape(a.shape[0], -1).any(dim=1).sum())
+    out.update({k: kern[k].shape[0] for k in kern.keys() - plain.keys()})
+    return out
+
+
+def check_bounce(case: str, calls: list) -> bool:
+    """compare_bounce on every call of a case, printed; True when no output
+    differs."""
+    diff = [compare_bounce(kind, args) for kind, args in calls]
+    bad = [{k: v for k, v in d.items() if v} for d in diff]
+    ok = not any(bad)
+    lanes = calls[0][1][0].pos.shape[0]
+    print(f"bounce {case}: {len(calls)} calls of {lanes} lanes, outputs that differ "
+          f"{bad} -> {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def main() -> int:
     torch.set_num_threads(1)  # one thread: the plain versions run as in the tests
-    libs = host_libraries(SOURCES + (RESTIR, SORTKEY, SHADE))
+    libs = host_libraries(SOURCES + (RESTIR, SORTKEY, SHADE, BOUNCE))
     cu.load_kernel_library = lambda name: (libs[name], 0.0)
     cu.stream_ptr = lambda t: None
 
@@ -768,6 +1004,8 @@ def main() -> int:
         ok &= check_sortkey(case, sortkey_case(case, 6))
     for case in SHADE_CASES:
         ok &= check_shade(case, shade_case(case, 8))
+    for case in BOUNCE_CASES:
+        ok &= check_bounce(case, bounce_case(case, 9))
     return 0 if ok else 1
 
 

@@ -20,12 +20,13 @@ One module-level registry, `REGISTRY`, holds both.
 * **Counters.** Named dicts of integers (`counter`): each kernel module's
   `LAUNCHES` (card launches by kernel name: the six trace dicts, K3's
   `launches.sortpos`, and ReSTIR's `launches.restir`, the sort key's
-  `launches.sortkey` (by variant: treelet, morton, octant) and hit
-  shading's `launches.shade`, which have no `kernel` span: their launches
-  sit in the integrator's `restir`, `sort` and `shade` spans),
-  `parallel/sharding.py`'s
-  `GATHER_BYTES`, and `LANES`, the lanes handed to each kernel's
-  dispatch wrapper (`kernel`), on the card and on the CPU alike.
+  `launches.sortkey` (by variant: treelet, morton, octant), hit shading's
+  `launches.shade` and the bounce kernels' `launches.bounce` (`scatter`,
+  `resolve`: one each a bounce), which have no `kernel` span: their
+  launches sit in the integrator's `restir`, `sort`, `shade` and `bounce`
+  spans), `parallel/sharding.py`'s `GATHER_BYTES`, and `LANES`, the lanes
+  handed to each kernel's dispatch wrapper (`kernel`), on the card and on
+  the CPU alike.
 
 `snapshot()` hands readers a copy of both. Nothing is written to a file:
 the profiler exports its own trace. The frame loop is driven from one

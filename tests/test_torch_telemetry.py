@@ -16,7 +16,7 @@ from ilgpu_raytracing_tpu_torch.config import RenderConfig
 from ilgpu_raytracing_tpu_torch.models.cornell import build_cornell_scene
 from ilgpu_raytracing_tpu_torch.models.scene import refit_mesh_instance
 from ilgpu_raytracing_tpu_torch.ops.cuda import binary, restir, shade, sortkey, sortpos, stream
-from ilgpu_raytracing_tpu_torch.ops.cuda import streamtreelet, treelet, wide
+from ilgpu_raytracing_tpu_torch.ops.cuda import bounce, streamtreelet, treelet, wide
 from ilgpu_raytracing_tpu_torch.parallel import sharding
 from ilgpu_raytracing_tpu_torch.runtime.renderer import Renderer
 from ilgpu_raytracing_tpu_torch.utils import telemetry
@@ -188,6 +188,7 @@ def test_counters_are_the_registrys_objects():
                     ("launches.restir", restir.LAUNCHES),
                     ("launches.sortkey", sortkey.LAUNCHES),
                     ("launches.shade", shade.LAUNCHES),
+                    ("launches.bounce", bounce.LAUNCHES),
                     ("gather_bytes", sharding.GATHER_BYTES), ("lanes", telemetry.LANES)):
         assert c[name] is d, name
     assert telemetry.snapshot()["counters"]["launches.wide"] == dict(wide.LAUNCHES)

@@ -23,13 +23,17 @@ the last ones, where a full prep holds `prepare`, `prepare_wide` and
 wall time per frame, the device-busy share (the union of the device
 operations' intervals over the wall time, as benchmark/harness/trace.py
 computes it), the share of the hand-written kernels (the trace kernels, K3,
-ReSTIR's and the sort key's), the top GPU kernels
+ReSTIR's, the sort key's, hit shading's and the bounce's scatter and
+resolve), the top GPU kernels
 by total time, and the 10 longest idle gaps of the device, each named by
 the innermost program span (`record_function` label) open on the host when
 it began.
 
 Run from the repository root on a machine with one CUDA card:
-    python3 tools/torch_frame_profile.py [--scene cornell|terrain|courtyard|courtyard-opaque|config4]
+    python3 tools/torch_frame_profile.py [--scene cornell|terrain|courtyard|courtyard-opaque|config4|oneweekend]
+
+`oneweekend` is the 16-spp sphere cell with every render key of
+benchmark/configs/oneweekend-16spp.json (chip_smoke.oneweekend_renderer).
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ import torch
 FRAMES = 3
 OWN_KERNELS = ("trace_kernel", "anyhit_kernel", "binary_kernel", "treelet_kernel",
                "hist_kernel", "scan_kernel", "rank_kernel", "restir_kernel", "key_kernel",
-               "shade_kernel")
+               "shade_kernel", "scatter_kernel", "resolve_kernel")
 
 
 def span_table(records) -> list[tuple[str, float, int, int]]:
@@ -75,7 +79,7 @@ def innermost(annotations, t: float) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("cornell", "terrain", "courtyard", "courtyard-opaque",
-                                        "config4"), default="cornell")
+                                        "config4", "oneweekend"), default="cornell")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_profile: no CUDA device", file=sys.stderr)
@@ -100,6 +104,10 @@ def main() -> int:
         _, scene = build_terrain_scene(device="cuda")
         r = Renderer(1920, 1080, RenderConfig(spp=2, max_depth=8), scene,
                      terrain_camera(1920, 1080), device="cuda")
+    elif args.scene == "oneweekend":
+        from chip_smoke import oneweekend_renderer
+
+        r = oneweekend_renderer("cuda")
     elif args.scene.startswith("courtyard"):
         from ilgpu_raytracing_tpu_torch.models.sponza_like import (
             build_sponza_like_scene,
